@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of paradis_torch on one CUDA card: build, check, forecast.
+"""Smoke run of paradis_torch on one CUDA card: build, check, forecast, train.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA H100):
 
@@ -16,13 +16,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    bilinear, float32 and bfloat16, plus an odd P·V tail shape; time the
    kernel, the plain version and ``F.grid_sample`` (a yardstick the port
    never calls) with CUDA events, beside the kernel's memory/compute bound;
-4. the main path: the full-width flagship ``Paradis`` (latent 1024, 768
+4. hold the interpolation backward kernel against its plain backward at the
+   same shapes (the cotangent a seeded normal in the field's dtype), plus a
+   bilinear case with every position on an integer (where K′ is zero at the
+   kinks); time the kernel, the plain backward and the backward of
+   ``F.grid_sample`` (``torch.autograd.grad``, a yardstick the port never
+   calls), beside the backward's memory/compute bound;
+5. the serving path: the full-width flagship ``Paradis`` (latent 1024, 768
    velocity vectors, 8 layers, bicubic, fast departure trig) built from
    ``configs/default.yaml`` with seeded random weights, runs a 40-step
    forecast rollout at batch 1 in float32 and in bfloat16 through
    ``make_forecast_rollout``.  Outputs must be finite, the kernel's launch
    count must rise by exactly 8 × 40 per rollout, and the first step must
-   agree with the same model routed through the plain interpolation.
+   agree with the same model routed through the plain interpolation;
+6. the training path: the same flagship in the configuration
+   ``configs/default.yaml`` trains (bf16 compute with fp32 parameters,
+   NorMuon with bf16 Newton–Schulz, weighted reversed Huber with latitude
+   weights, 1 forecast step, batch 1; and the same in float32 with
+   ``compute.use_amp=false``) takes ``TRAIN_STEPS`` steps through
+   ``make_train_step`` on one seeded random batch, on the WSD schedule with a
+   short warmup.  Losses and gradient norms must be finite, the last loss
+   below the first, each step must launch the forward and the backward
+   kernel exactly 8 × S times, and the first step's parameter gradients must
+   agree with those through the plain interpolation.
 
 The last lines are the card line, one JSON object with a record per kernel,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -44,6 +60,12 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
+BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
+BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:195"
+TRAIN_STEPS = 10           # train steps on one batch (the first is the warm-up)
+TRAIN_PROFILE_STEPS = 2    # train steps traced by torch.profiler
+# WSD with a short warmup, so the few steps run at the configured rate
+TRAIN_OVERRIDES = ["training.scheduler.wsd.warmup=3"]
 # |kernel - plain| limits, elementwise, abs + rel·|plain|: float32 sums the
 # same products in another FMA order (under the cancellation of the bicubic
 # lobes, ~5e-6 for fields of unit spread); a bfloat16 result is that float32
@@ -57,6 +79,28 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-5 + 2.0 ** -7)}
 # measured bf16 ratio is 0.015 at the flagship seed, and the limit is about
 # twice that.
 STEP_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+# backward kernel vs plain backward, elementwise |diff| <= abs + rel·|plain|,
+# for a field and cotangent of unit spread.  d_py and d_px: float32 in both
+# dtypes, the same sums of 16 products (Σ|terms| up to ~30 at |g|, |f| ~ 5) in
+# another FMA order; measured ≤ 1.3e-5 on values up to 23.  d_field: each cell
+# sums the contributions of the up to ~16 positions that tap it, the kernel
+# with float32 atomics in an order that changes from run to run (reruns
+# differ by ~1e-6), the plain version with scatter_add; a bf16 d_field is
+# that sum rounded, so it may land on the neighbouring bf16 value (≤ 2^-7 of
+# its magnitude), as in KERNEL_TOL.
+BWD_TOL = {
+    "float32": {"d_field": (2e-5, 1e-5), "d_py": (3e-5, 1e-5), "d_px": (3e-5, 1e-5)},
+    "bfloat16": {"d_field": (2e-5, 1e-5 + 2.0 ** -7), "d_py": (3e-5, 1e-5),
+                 "d_px": (3e-5, 1e-5)},
+}
+# first train step, parameter gradients through the kernels vs through the
+# plain interpolation, max |diff| / max |grad| over the whole gradient: the
+# per-element differences above (d_field in a run-to-run order), carried
+# back through 8 layers.  In bf16 every activation and its cotangent rounds
+# (2^-8 relative), so one d_field value on the neighbouring bf16 value
+# spreads.  Measured 2.4e-5 (fp32) and 0.020 (bf16) at the flagship seed;
+# the limits are about 4× and 3× that.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
 
 
 def log(msg: str) -> None:
@@ -162,6 +206,75 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool) -> dict:
     return res
 
 
+def bound_bwd(field, py, g, mode: str):
+    """(bound_ms, bound_by) of the backward: field, both positions and g read
+    once; d_field (field's dtype), d_py and d_px (fp32) written once; against
+    the flops it needs over the fp32 rate."""
+    n_out = py.numel()
+    f_bytes = field.numel() * field.element_size()
+    nbytes = 2 * f_bytes + 2 * n_out * 4 + n_out * g.element_size() + 2 * n_out * 4
+    # per output: weights and derivatives (4 cubic polynomials each, ~6-8
+    # flops, per axis; or 2 linear); per tap two FMAs (f·K, f·K′), one product
+    # g·K·K and its add into d_field; per tap row two FMAs and one product
+    if mode == "bicubic":
+        flops = n_out * (2 * 4 * (6 + 8) + 16 * 6 + 4 * 5 + 2)
+    else:
+        flops = n_out * (2 * 2 * (2 + 2) + 4 * 6 + 2 * 5 + 2)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
+                     integer: bool = False) -> dict:
+    """The backward kernel against the plain backward; with ``timed``, its
+    time beside the plain backward's, ``F.grid_sample``'s backward and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from paradis_torch.ops.interp import interp_bwd_plain
+    from paradis_torch.ops.interp_cuda import interp_bwd_cuda
+
+    dtype = getattr(torch, dtype_name)
+    B, R, C, V, H, W = shape
+    field, py, px = interp_inputs(B, R, C, V, H, W, dtype, seed=len(mode) + V + 1)
+    if integer:
+        py, px = py.round(), px.round()
+    gen = torch.Generator(device="cuda").manual_seed(V)
+    g = torch.randn(py.shape, generator=gen, device="cuda").to(dtype)
+    out = interp_bwd_cuda(field, py, px, g, mode)
+    ref = interp_bwd_plain(field, py, px, g, mode)
+    torch.cuda.synchronize()
+    res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
+           "integer_positions": integer, "max_abs_err": 0.0, "worst_err_over_limit": 0.0,
+           "ok": out[0].dtype == dtype}
+    for name, o, r in zip(("d_field", "d_py", "d_px"), out, ref):
+        atol, rtol = BWD_TOL[dtype_name][name]
+        diff = (o.float() - r.float()).abs()
+        res[f"{name}_max_abs_err"] = float(diff.max())
+        res["max_abs_err"] = max(res["max_abs_err"], float(diff.max()))
+        res["worst_err_over_limit"] = max(res["worst_err_over_limit"],
+                                          float((diff / (atol + rtol * r.float().abs())).max()))
+        res["ok"] = (res["ok"] and bool((diff <= atol + rtol * r.float().abs()).all())
+                     and bool(torch.isfinite(o).all()))
+    if integer and mode == "bilinear":
+        res["ok"] = res["ok"] and not out[1].any() and not out[2].any()
+    if timed:
+        res["ms"] = time_ms(lambda: interp_bwd_cuda(field, py, px, g, mode), iters=100)
+        res["plain_ms"] = time_ms(lambda: interp_bwd_plain(field, py, px, g, mode), iters=10)
+        img = field.permute(0, 3, 1, 2).reshape(B * V, 1, R, C).contiguous().requires_grad_()
+        gx = (px / (C - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
+        gy = (py / (R - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
+        grid = torch.stack([gx, gy], dim=-1).to(dtype).contiguous().requires_grad_()
+        lib_out = F.grid_sample(img, grid, mode=mode, padding_mode="zeros", align_corners=True)
+        g_lib = g.permute(0, 3, 1, 2).reshape(B * V, 1, 1, H * W).contiguous()
+        res["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True), iters=50)
+        res["bound_ms"], res["bound_by"] = bound_bwd(field, py, g, mode)
+    return res
+
+
 def flagship_dims(cfg) -> dict:
     f = cfg.features
     n_levels = len(f.pressure_levels)
@@ -173,32 +286,35 @@ def flagship_dims(cfg) -> dict:
                 n_const=n_const, input_dim=(n_common + n_forcings) * n_time + n_const)
 
 
-def profile_rollout(rollout, batch, n_common: int, wall_per_step_s: float) -> dict:
-    """Device time per model step, by kernel, from a short traced rollout.
+def profile_steps(run, n_steps: int, wall_per_step_s: float) -> dict:
+    """Device time per step, by kernel, from ``run()`` traced (it takes
+    ``n_steps`` steps).
 
     The busy share divides it by the untraced wall time per step (the
-    tracer slows the host, not the device's work).  ``None`` where the
-    profiler saw no device activity.
+    tracer slows the host, not the device's work).  Annotated ranges on the
+    device timeline (the optimizers' ``record_function`` spans) are not
+    kernels and are left out.  ``None`` where the profiler saw no device
+    activity.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    short = dict(batch, forcings=batch["forcings"][:, :PROFILE_STEPS])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rollout(short, n_common)
+        run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us <= 0:
         return {"device_ms_per_step": None, "busy_share": None}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    per_step_ms = dev_us / 1e3 / PROFILE_STEPS
+    per_step_ms = dev_us / 1e3 / n_steps
     return {
         "device_ms_per_step": per_step_ms,
-        "device_launches_per_step": sum(e.count for e in kernels) / PROFILE_STEPS,
+        "device_launches_per_step": sum(e.count for e in kernels) / n_steps,
         "busy_share": per_step_ms / (wall_per_step_s * 1e3),
-        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / PROFILE_STEPS
+        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n_steps
                                     for e in top},
     }
 
@@ -246,7 +362,9 @@ def run_forecast(dtype_name: str, card: str) -> dict:
         counts.append(interp_cuda.launches)
     expected = n_layers * STEPS
     median = sorted(times)[1]
-    profile = profile_rollout(rollout, batch, d["n_common"], median / STEPS)
+    short = dict(batch, forcings=batch["forcings"][:, :PROFILE_STEPS])
+    profile = profile_steps(lambda: rollout(short, d["n_common"]), PROFILE_STEPS,
+                            median / STEPS)
 
     # first step again, routed through the plain interpolation on the card
     model_in = torch.cat([batch["input"], batch["forcings"][:, 0], batch["constants"]], dim=-1)
@@ -274,6 +392,120 @@ def run_forecast(dtype_name: str, card: str) -> dict:
                  and res["out_shape"] == [1, STEPS, NLAT, NLON, d["n_out"]]
                  and step_err <= res["first_step_limit"] and res["out_std"] > 0)
     del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_train(dtype_name: str, card: str) -> dict:
+    """Full-width train steps: finiteness, loss decrease, launch counts and
+    the first step's gradients through the kernels against the plain path."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data import dyn_output_features
+    from paradis_torch.model import Paradis
+    from paradis_torch.ops import interp_cuda
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+    from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
+                                     create_train_state, make_train_step, set_learning_rate)
+
+    overrides = TRAIN_OVERRIDES + ([] if dtype_name == "bfloat16" else ["compute.use_amp=false"])
+    cfg = load_config(overrides=overrides)
+    d = flagship_dims(cfg)
+    S = int(cfg.model.forecast_steps)
+    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+    torch.cuda.reset_peak_memory_stats()
+    model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
+                                lat_deg=lat, lon_deg=lon, device="cuda")
+    n_layers = len(model.layers)
+    loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
+                                       device="cuda")
+    optimizer = build_optimizer(cfg, model)
+    lr_at, _ = build_schedule(cfg, int(cfg.training.max_steps))
+    state = create_train_state(model, optimizer)
+    train_step = make_train_step(model, loss_fn, cfg, optimizer)
+    rng = np.random.default_rng(0)
+    batch = {
+        "input": rng.normal(size=(1, NLAT, NLON, d["n_common"] * d["n_time"])),
+        "target": rng.normal(size=(1, S, NLAT, NLON, d["n_out"])),
+        "forcings": rng.normal(size=(1, S, NLAT, NLON, d["n_forcings"] * d["n_time"])),
+        "constants": rng.normal(size=(1, NLAT, NLON, d["n_const"])),
+    }
+    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
+
+    # the first step's parameter gradients, through the plain interpolation
+    # and through the kernels (the step's loss at S = 1, unscaled)
+    grads, grad_launches = {}, {}
+    model_in = torch.cat([batch["input"], batch["forcings"][:, 0], batch["constants"]], dim=-1)
+    for impl in ("plain", "auto"):
+        model.set_interp_impl(impl)
+        optimizer.zero_grad()
+        before = (interp_cuda.launches, interp_cuda.bwd_launches)
+        loss_fn(model(model_in), batch["target"][:, 0]).backward()
+        torch.cuda.synchronize()
+        grad_launches[impl] = [interp_cuda.launches - before[0],
+                               interp_cuda.bwd_launches - before[1]]
+        grads[impl] = torch.cat([p.grad.flatten() for p in optimizer.params])
+    model.set_interp_impl("auto")
+    optimizer.zero_grad()
+    grad_scale = float(grads["plain"].abs().max())
+    grad_err = float((grads["auto"] - grads["plain"]).abs().max()) / grad_scale
+    del grads
+
+    losses, gnorms, counts, times = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        set_learning_rate(optimizer, lr_at(state.step))
+        interp_cuda.launches = interp_cuda.bwd_launches = 0
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, d["n_common"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append([interp_cuda.launches, interp_cuda.bwd_launches])
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    median = float(np.median(times[1:]))
+
+    def traced():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            train_step(state, batch, d["n_common"])
+
+    profile = profile_steps(traced, TRAIN_PROFILE_STEPS, median)
+    # the optimizer's share: one more update on the last gradients, timed
+    # alone on the host clock and traced
+    opt_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.step()
+        torch.cuda.synchronize()
+        opt_times.append(time.perf_counter() - t0)
+    opt_s = float(np.median(opt_times))
+    opt_profile = profile_steps(optimizer.step, 1, opt_s)
+
+    expected = n_layers * S
+    res = {
+        "dtype": dtype_name, "card": card, "model_dtype": str(model.dtype),
+        "optimizer": optimizer.name, "ns_dtype": str(optimizer.ns_dtype), "S": S,
+        "layers": n_layers, "params": sum(p.numel() for p in model.parameters()),
+        "losses": losses, "grad_norms": gnorms, "lrs": [lr_at(i) for i in range(TRAIN_STEPS)],
+        "launches_per_step": counts, "expected_launches": expected, "step_s": times,
+        "train_steps_per_s": 1.0 / median,
+        "first_step_grad_launches": grad_launches,
+        "first_step_grad_max_abs": grad_scale, "first_step_grad_rel_err_vs_plain": grad_err,
+        "first_step_grad_limit": GRAD_TOL[dtype_name],
+        "optimizer_step_wall_ms": opt_s * 1e3, "optimizer_share_of_step_wall": opt_s / median,
+        "optimizer_profile": opt_profile,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profile,
+    }
+    res["ok"] = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+                 and losses[-1] < losses[0]
+                 and all(c == [expected, expected] for c in counts)
+                 and grad_launches == {"plain": [0, 0], "auto": [expected, expected]}
+                 and model.dtype == getattr(torch, dtype_name)
+                 and grad_err <= GRAD_TOL[dtype_name])
+    del model, optimizer, state, train_step
     torch.cuda.empty_cache()
     return res
 
@@ -321,6 +553,20 @@ def main() -> int:
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
 
+    bwd_checks = []
+    for dtype_name in ("float32", "bfloat16"):
+        for mode, shape in (("bicubic", flag), ("bilinear", flag_bl)):
+            bwd_checks.append(check_bwd_kernel(mode, dtype_name, shape, timed=True))
+        for mode in ("bicubic", "bilinear"):
+            bwd_checks.append(check_bwd_kernel(mode, dtype_name, tail, timed=False))
+        bwd_checks.append(check_bwd_kernel("bilinear", dtype_name, flag_bl, timed=False,
+                                           integer=True))
+    for c in bwd_checks:
+        log("[kernel-bwd] " + json.dumps(c))
+    bad = [c for c in bwd_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"backward kernel disagrees with its plain version: {bad}")
+
     runs = {}
     for dtype_name in ("float32", "bfloat16"):
         res = run_forecast(dtype_name, card)
@@ -331,6 +577,16 @@ def main() -> int:
         log(f"[forecast] {dtype_name}: {res['forecast_steps_per_s']:.2f} steps/s "
             f"({STEPS}-step rollout, batch 1) on {card}")
 
+    trains = {}
+    for dtype_name in ("bfloat16", "float32"):
+        res = run_train(dtype_name, card)
+        log("[train] " + json.dumps(res))
+        if not res["ok"]:
+            raise SystemExit(f"train steps failed their checks: {res}")
+        trains[dtype_name] = res
+        log(f"[train] {dtype_name}: {res['train_steps_per_s']:.2f} train steps/s = samples/s "
+            f"(batch 1, S = {res['S']}, {res['optimizer']}) on {card}")
+
     kernels = []
     for c in checks:
         if c["mode"] == "bicubic" and "ms" in c:  # the main path's kernel variants
@@ -338,6 +594,15 @@ def main() -> int:
                 "name": f"interp_fwd[bicubic,{c['dtype']}]", "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": REPLACES,
                 "launches": runs[c["dtype"]]["launches_per_rollout"][0],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]})
+    for c in bwd_checks:
+        if c["mode"] == "bicubic" and "ms" in c:  # the train path's kernel variants
+            kernels.append({
+                "name": f"interp_bwd[bicubic,{c['dtype']}]", "route": "cuda",
+                "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+                "launches": trains[c["dtype"]]["launches_per_step"][0][1],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]})

@@ -1,9 +1,11 @@
 """paradis_torch: the PARADIS weather model in PyTorch for NVIDIA Hopper.
 
 A port of ``paradis_tpu`` (JAX on a TPU) that sits beside it.  Layout mirrors
-the JAX package (``sphere/``, ``ops/``, ``model/``, ``forecast/``); tensors are
-channels-last ``[B, H, W, C]`` as there.  The one hand-written kernel on the
-forecast path is the gather-interpolation in ``csrc/interp_fwd.cu``.
+the JAX package (``sphere/``, ``ops/``, ``model/``, ``forecast/``, ``train/``,
+``data/``, ``utils/``); tensors are channels-last ``[B, H, W, C]`` as there.
+The hand-written kernels are the gather-interpolation (``csrc/interp_fwd.cu``,
+on the forecast and train paths) and its backward (``csrc/interp_bwd.cu``, on
+the train path).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit device they raise rather than fall back to the CPU.

@@ -10,8 +10,11 @@ The physics layers are a plain Python loop over ``layers`` (an
 ``nn.ModuleList``); the JAX package's stacked ``[L, ...]`` parameter tree is
 unstacked by the weight bridge (``model/weights.py``).  Mixed precision:
 float32 parameters, compute in ``dtype``, float32 for ChannelNorm, GlobalBias
-and the ``alpha_adv`` sigmoid.  Spatial sharding constraints and
-rematerialisation are not ported: this model serves the forecast path.
+and the ``alpha_adv`` sigmoid.  The model serves the forecast path and
+trains (``train/step.py``): gradients flow through every block, and through
+the interpolation by its backward kernel on a card.  Spatial sharding
+constraints and rematerialisation (``compute.gradient_checkpointing``) are
+not ported.
 """
 
 from __future__ import annotations

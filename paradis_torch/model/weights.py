@@ -29,6 +29,17 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
+def flax_leaf(name: str, ndim: int) -> str:
+    """The flax leaf name of the port parameter ``name`` of rank ``ndim``.
+
+    The inverse of the renaming below: a ``weight`` of rank ≥ 2 is a flax
+    ``kernel`` (the only other ``weight``, ChannelNorm's, is 1-D in both
+    packages); every other leaf keeps its name.
+    """
+    leaf = name.rsplit(".", 1)[-1]
+    return "kernel" if leaf == "weight" and ndim >= 2 else leaf
+
+
 def _convert(parts: tuple, arr: np.ndarray):
     leaf = parts[-1]
     name = list(parts)

@@ -16,8 +16,8 @@ import torch
 from torch import nn
 
 from paradis_torch.ops.blocks import GMBlock
-from paradis_torch.ops.interp import check_mode, interp_plain
-from paradis_torch.ops.interp_cuda import interp_fwd_cuda
+from paradis_torch.ops.interp import check_mode
+from paradis_torch.ops.interp_cuda import Interp
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
 
@@ -55,12 +55,13 @@ def departure_pixel_coords(u, v, dt: float, lat_grid: torch.Tensor, lon_grid: to
 
 def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
                 max_dy_pix: float | None = None):
-    """Backend dispatch for the gather-interpolation.
+    """Backend dispatch for the gather-interpolation, forward and backward.
 
-    ``auto`` sends a tensor on the CPU to the plain version and any other
-    tensor to the hand-written kernel, which launches or raises: there is no
-    fallback.  ``plain`` forces the plain version on any device (the
-    reference the kernel is held against).
+    Every backend goes through the autograd pairing ``interp_cuda.Interp``.
+    ``auto`` sends a tensor on the CPU to the plain versions and any other
+    tensor to the hand-written kernels, which launch or raise: there is no
+    fallback.  ``plain`` forces the plain forward and the plain backward on
+    any device (the reference the kernels are held against).
 
     ``max_dy_pix`` is part of the op's contract on every backend: when given,
     departure rows are clamped to ±``max_dy_pix`` of their arrival row.
@@ -73,9 +74,7 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
         pad = (field.shape[1] - H) // 2
         arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + pad
         pix_y = torch.clamp(pix_y.float(), arr - max_dy_pix, arr + max_dy_pix)
-    if impl == "plain" or field.device.type == "cpu":
-        return interp_plain(field, pix_y, pix_x, mode)
-    return interp_fwd_cuda(field, pix_y, pix_x, mode)
+    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain")
 
 
 class NeuralSemiLagrangian(nn.Module):

@@ -12,8 +12,14 @@ cubic convolution with a = -0.75 (4×4 taps), bilinear has 2×2 taps.  Sums
 run in float32: over the columns of a tap row first, then over the rows, the
 order the CUDA kernel (``csrc/interp_fwd.cu``) uses.
 
-This version serves the CPU (tests, CPU runs) and is what the CUDA kernel is
-held against on the card; the forecast path on a card never calls it.
+``interp_bwd_plain`` is the backward: the gradients of the output with
+respect to the field and to both positions, with the JAX package's derivative
+convention (``paradis_tpu/ops/interp.py:_dense_kernel_derivative``): K′ is
+zero at the bilinear kinks, where autograd of ``1 − t, t`` would give ∓1.
+
+These versions serve the CPU (tests, CPU runs) and are what the CUDA kernels
+(``csrc/interp_fwd.cu``, ``csrc/interp_bwd.cu``) are held against on the
+card; the forecast and train paths on a card never call them.
 """
 
 from __future__ import annotations
@@ -46,6 +52,23 @@ def tap_weights(pos: torch.Tensor, mode: str):
     return i0, (-1, 0, 1, 2), _cubic_weights(t)
 
 
+def kernel_derivative(dist: torch.Tensor, mode: str) -> torch.Tensor:
+    """∂K(d)/∂d at signed pixel distances ``d = pos − tap``.
+
+    ``sign(0) = 0`` and the open support ``|d| < 1`` make it zero at the
+    bilinear kinks (d = 0 and |d| = 1), as in the JAX package; bicubic is C¹
+    there, so the convention does not matter for it.
+    """
+    d = dist.abs()
+    s = torch.sign(dist)
+    if mode == "bilinear":
+        return torch.where(d < 1.0, -s, 0.0)
+    a = CUBIC_A
+    near = (3.0 * (a + 2.0) * d - 2.0 * (a + 3.0)) * d
+    far = (3.0 * a * d - 10.0 * a) * d + 8.0 * a
+    return s * torch.where(d <= 1.0, near, torch.where(d < 2.0, far, 0.0))
+
+
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode must be bilinear|bicubic, got {mode!r}")
@@ -76,3 +99,51 @@ def interp_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
             row = row + torch.where(ok, w_col * tap, 0.0)
         acc = acc + torch.where(r_ok, w_row * row, 0.0)
     return acc.reshape(B, H, W, V).to(field.dtype)
+
+
+def interp_bwd_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                     g: torch.Tensor, mode: str = "bicubic"):
+    """Gradients of ``interp_plain`` for the output cotangent ``g`` [B, H, W, V].
+
+    Returns ``(d_field, d_py, d_px)``:
+    ``d_field[b,r,c,v] = Σ_p g·K(py−r)·K(px−c)`` in the field's dtype,
+    ``d_py = g·Σ K′(py−r)·f·K(px−c)`` and ``d_px = g·Σ K(py−r)·f·K′(px−c)``
+    in float32.  Written out tap by tap (not autograd of ``interp_plain``) so
+    that K′ follows ``kernel_derivative``.  Taps outside the field and
+    non-finite positions contribute to none of the three; sums are float32,
+    over a tap row's columns first, then over rows.
+    """
+    check_mode(mode)
+    B, R, C, V = field.shape
+    _, H, W, _ = pix_y.shape
+    flat = field.float().reshape(B, R * C, V)
+    py = pix_y.float().reshape(B, H * W, V)
+    px = pix_x.float().reshape(B, H * W, V)
+    gf = g.float().reshape(B, H * W, V)
+    y0, y_off, wy = tap_weights(py, mode)
+    x0, x_off, wx = tap_weights(px, mode)
+    ty, tx = py - y0, px - x0
+    dwy = [kernel_derivative(ty - k, mode) for k in y_off]
+    dwx = [kernel_derivative(tx - k, mode) for k in x_off]
+
+    d_flat = torch.zeros_like(flat)
+    acc_y = torch.zeros_like(py)
+    acc_x = torch.zeros_like(py)
+    for dy, w_row, dw_row in zip(y_off, wy, dwy):
+        r = y0 + dy
+        r_ok = (r >= 0) & (r <= R - 1)           # False for NaN positions too
+        row_w = torch.zeros_like(py)
+        row_dw = torch.zeros_like(py)
+        g_row = gf * w_row
+        for dx, w_col, dw_col in zip(x_off, wx, dwx):
+            c = x0 + dx
+            ok = r_ok & (c >= 0) & (c <= C - 1)
+            idx = torch.where(ok, r * C + c, 0.0).long()
+            tap = torch.gather(flat, 1, idx)
+            row_w = row_w + torch.where(ok, w_col * tap, 0.0)
+            row_dw = row_dw + torch.where(ok, dw_col * tap, 0.0)
+            d_flat.scatter_add_(1, idx, torch.where(ok, g_row * w_col, 0.0))
+        acc_y = acc_y + torch.where(r_ok, dw_row * row_w, 0.0)
+        acc_x = acc_x + torch.where(r_ok, w_row * row_dw, 0.0)
+    d_field = d_flat.reshape(B, R, C, V).to(field.dtype)
+    return (d_field, (gf * acc_y).reshape(B, H, W, V), (gf * acc_x).reshape(B, H, W, V))

@@ -1,0 +1,135 @@
+"""Weighted forecast losses: MSE and reversed Huber.
+
+Port of ``paradis_tpu/train/loss.py``.  Weights per output channel are the
+configured variable weight times, on atmospheric channels, the pressure
+weight ``max(p/1000, 0.2)`` of the channel's ``_h{level}`` suffix (flipped for
+geopotential under ``flip_geopotential_weights``); latitude area weights
+(unit mean) multiply along the grid's rows.  All loss math runs in float32.
+The spectral AMSE loss is not ported yet (ROADMAP Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from paradis_torch.sphere.geometry import latitude_weights
+
+_LEVEL_RE = re.compile(r"_h\d+$")
+
+
+def strip_level(name: str) -> str:
+    """'geopotential_h500' → 'geopotential'."""
+    return _LEVEL_RE.sub("", name)
+
+
+def pressure_weights(levels_hpa) -> np.ndarray:
+    """``max(p/1000, 0.2)`` per level."""
+    p = np.asarray(levels_hpa, np.float32) / 1000.0
+    return np.where(p > 0.2, p, 0.2).astype(np.float32)
+
+
+def build_variable_weights(cfg, output_name_order: list[str]) -> np.ndarray:
+    """Per-output-channel variable weights from the config, in output order.
+
+    Raises if an output feature has no configured weight.
+    """
+    table = {}
+    table.update(cfg.training.variable_loss_weights.atmospheric)
+    table.update(cfg.training.variable_loss_weights.surface)
+    out = np.zeros(len(output_name_order), np.float32)
+    for i, feat in enumerate(output_name_order):
+        base = strip_level(feat)
+        if base not in table:
+            raise ValueError(f"No loss weight configured for output feature {feat!r} "
+                             f"(base variable {base!r}).")
+        out[i] = float(table[base])
+    return out
+
+
+def reversed_huber(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Smooth reversed Huber: linear for small errors, quadratic for large,
+    blended by ``sigmoid(2 (|e| − δ))``."""
+    error = pred - target
+    abs_error = error.abs()
+    small = delta * abs_error
+    large = (error * error + delta * delta) / (2.0 * delta)
+    w = 1.0 / (1.0 + torch.exp(-2.0 * (abs_error - delta)))
+    return (1.0 - w) * small + w * large
+
+
+@dataclass(frozen=True)
+class WeightedLoss:
+    """Feature- and latitude-weighted pointwise loss over [B, H, W, C] fields."""
+
+    kind: str                          # "mse" | "reversed_huber"
+    feature_weights: torch.Tensor      # [C] float32
+    lat_weights: torch.Tensor | None = None  # [H] float32, or None
+    delta: float = 1.0
+
+    @classmethod
+    def from_config(cls, cfg, lat_deg, output_name_order: list[str], kind: str | None = None,
+                    device=None) -> "WeightedLoss":
+        """Weights from the config for the output channels ``output_name_order``
+        on a grid with latitudes ``lat_deg``; tensors on ``device`` (the CPU
+        unless given)."""
+        kind = kind or cfg.training.loss_function.type
+        if kind == "amse":
+            raise NotImplementedError("the AMSE loss (and its spherical harmonic transform) "
+                                      "is not ported yet: ROADMAP Queue 1 item 6")
+        if kind not in ("mse", "reversed_huber"):
+            raise ValueError(f"{kind} not supported, choose between [reversed_huber, mse, amse]")
+        lcfg = cfg.training.loss_function
+        levels = [float(lev) for lev in cfg.features.pressure_levels]
+
+        var_w = build_variable_weights(cfg, output_name_order)
+        fw = var_w.copy()
+        if bool(lcfg.get("apply_pressure_weights", True)):
+            pw = pressure_weights(levels)
+            flip_geo = bool(lcfg.get("flip_geopotential_weights", False))
+            level_pos = {lev: i for i, lev in enumerate(levels)}
+            for i, feat in enumerate(output_name_order):
+                m = _LEVEL_RE.search(feat)
+                if m is None:
+                    continue  # surface variable: variable weight only
+                lev = float(m.group()[2:])
+                if lev not in level_pos:
+                    raise ValueError(f"output feature {feat!r} has level {lev} not in "
+                                     f"configured pressure_levels {levels}")
+                table = pw[::-1] if flip_geo and strip_level(feat) == "geopotential" else pw
+                fw[i] = var_w[i] * table[level_pos[lev]]
+
+        lat_w = None
+        if lcfg.lat_weights:
+            lat_w = torch.tensor(latitude_weights(np.asarray(lat_deg, np.float64)),
+                                 dtype=torch.float32, device=device)
+        return cls(kind=kind, feature_weights=torch.tensor(fw, device=device),
+                   lat_weights=lat_w, delta=float(lcfg.delta_loss))
+
+    def _pointwise(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        pred, target = pred.float(), target.float()
+        if self.kind == "mse":
+            d = pred - target
+            return d * d
+        return reversed_huber(pred, target, self.delta)
+
+    def _weighted(self, loss: torch.Tensor) -> torch.Tensor:
+        loss = loss * self.feature_weights
+        if self.lat_weights is not None:
+            loss = loss * self.lat_weights[:, None, None]
+        return loss
+
+    def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Scalar weighted loss over ``[B, H, W, C]`` prediction and target."""
+        return self._weighted(self._pointwise(pred, target)).mean()
+
+    def per_channel(self, pred: torch.Tensor, target: torch.Tensor,
+                    weighted: bool = True) -> torch.Tensor:
+        """Per-output-channel diagnostic loss ``[C]``."""
+        loss = self._pointwise(pred, target)
+        if weighted:
+            loss = self._weighted(loss)
+        return loss.mean(dim=(0, 1, 2))

@@ -149,6 +149,18 @@ batch = {{"input": torch.randn(1, 8, 16, 8, generator=g),
           "constants": torch.randn(1, 8, 16, 10, generator=g)}}
 out = make_forecast_rollout(model, cfg)(batch, 4)
 assert out.shape == (1, 2, 8, 16, 12) and torch.isfinite(out).all()
+
+from paradis_torch.train import (WeightedLoss, build_optimizer, create_train_state,
+                                 make_train_step)
+names = ["temperature_h500"] * 11 + ["2m_temperature"]
+loss_fn = WeightedLoss.from_config(cfg, lat, names)
+optimizer = build_optimizer(cfg, model)
+state = create_train_state(model, optimizer)
+before = model.input_proj.layer0_CLinear.conv.weight.detach().clone()
+batch["target"] = torch.randn(1, 1, 8, 16, 12, generator=g)
+metrics = make_train_step(model, loss_fn, cfg, optimizer)(state, batch, 4)
+assert torch.isfinite(metrics["loss"]) and metrics["applied"] and state.step == 1
+assert not torch.equal(before, model.input_proj.layer0_CLinear.conv.weight)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
 assert not bad, bad
@@ -157,8 +169,9 @@ print("isolated")
 
 
 def test_port_runs_without_jax_or_the_jax_package():
-    """A fresh interpreter imports the port, builds and runs a toy model on
-    the CPU, and has loaded nothing of JAX, flax or paradis_tpu."""
+    """A fresh interpreter imports the port, builds a toy model on the CPU,
+    runs a rollout and takes one NorMuon train step, and has loaded nothing
+    of JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
