@@ -22,14 +22,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    kinks); time the kernel, the plain backward and the backward of
    ``F.grid_sample`` (``torch.autograd.grad``, a yardstick the port never
    calls), beside the backward's memory/compute bound;
-5. the serving path: the full-width flagship ``Paradis`` (latent 1024, 768
+5. the row-banded pair at the 1.40625° shapes (field [1, 132, 260, 768]
+   bicubic and [1, 130, 258, 768] bilinear, positions [1, 128, 256, 768]
+   as above, clamped to the bound ``compute.interp_band_rad=0.3`` gives on
+   that grid, 12.2 px), float32 and bfloat16, plus an odd tail shape where
+   the band gate is on: forward and backward held against the banded plain
+   versions and against the unbanded kernels on the same clamped positions;
+   timed beside the unbanded kernel, the plain version, ``F.grid_sample``
+   (forward and backward) and the bound;
+6. the serving path: the full-width flagship ``Paradis`` (latent 1024, 768
    velocity vectors, 8 layers, bicubic, fast departure trig) built from
    ``configs/default.yaml`` with seeded random weights, runs a 40-step
    forecast rollout at batch 1 in float32 and in bfloat16 through
    ``make_forecast_rollout``.  Outputs must be finite, the kernel's launch
    count must rise by exactly 8 × 40 per rollout, and the first step must
-   agree with the same model routed through the plain interpolation;
-6. the training path: the same flagship in the configuration
+   agree with the same model routed through the plain interpolation.  Then
+   the same at 1.40625° (128 × 256) with ``compute.interp_band_rad=0.3``:
+   the banded kernel must run exactly 8 × 40 times per rollout and the
+   unbanded one never;
+7. the training path: the same flagship in the configuration
    ``configs/default.yaml`` trains (bf16 compute with fp32 parameters,
    NorMuon with bf16 Newton–Schulz, weighted reversed Huber with latitude
    weights, 1 forecast step, batch 1; and the same in float32 with
@@ -38,7 +49,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    short warmup.  Losses and gradient norms must be finite, the last loss
    below the first, each step must launch the forward and the backward
    kernel exactly 8 × S times, and the first step's parameter gradients must
-   agree with those through the plain interpolation.
+   agree with those through the plain interpolation.  Then the same at
+   1.40625° with ``compute.interp_band_rad=0.3`` and
+   ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
+   step launches the banded forward 16 times (8, and 8 in the backward's
+   replay), the banded backward 8 times and the unbanded kernels never.
 
 The last lines are the card line, one JSON object with a record per kernel,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -62,10 +77,21 @@ KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
 BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
 BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:195"
+BAND_SOURCE = "paradis_torch/csrc/interp_band_fwd.cu"
+BAND_REPLACES = "paradis_tpu/ops/interp_pallas.py:501"
+BAND_BWD_SOURCE = "paradis_torch/csrc/interp_band_bwd.cu"
+BAND_BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:512"
 TRAIN_STEPS = 10           # train steps on one batch (the first is the warm-up)
 TRAIN_PROFILE_STEPS = 2    # train steps traced by torch.profiler
 # WSD with a short warmup, so the few steps run at the configured rate
 TRAIN_OVERRIDES = ["training.scheduler.wsd.warmup=3"]
+HR = (128, 256)            # 1.40625°
+BAND_RAD = 0.3             # compute.interp_band_rad of the 1.40625° runs
+HR_OVERRIDES = [f"compute.interp_band_rad={BAND_RAD}"]
+# the 1.40625° train configuration: banded interpolation and full
+# recomputation of each physics layer in the backward
+HR_TRAIN_OVERRIDES = TRAIN_OVERRIDES + HR_OVERRIDES + ["compute.gradient_checkpointing=true"]
+HR_TRAIN_STEPS = 6         # train steps at 1.40625° (the first is the warm-up)
 # |kernel - plain| limits, elementwise, abs + rel·|plain|: float32 sums the
 # same products in another FMA order (under the cancellation of the bicubic
 # lobes, ~5e-6 for fields of unit spread); a bfloat16 result is that float32
@@ -101,6 +127,15 @@ BWD_TOL = {
 # spreads.  Measured 2.4e-5 (fp32) and 0.020 (bf16) at the flagship seed;
 # the limits are about 4× and 3× that.
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
+# the same at 1.40625°: the float32 gap is 2.1e-4 here (4.5e-4 on the batch
+# of paradis_torch/tools/grad_gap.py), the same to three digits with the
+# band off (the unbanded kernels) and with checkpointing off, while the clamp
+# binds nowhere (largest row displacement 8.7 px of 12.2) and two runs
+# through the kernels differ by ≤ 2.1e-7; so it is the plain path's other
+# float32 order, magnified where a pixel is 4× finer and a parameter's
+# gradient sums 16× the positions.  The limit is about 5× this batch's gap;
+# bf16 as above (measured 0.006).
+HR_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2.0 ** -4}
 
 
 def log(msg: str) -> None:
@@ -164,44 +199,99 @@ def bound(field, py, mode: str):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def check_kernel(mode: str, dtype_name: str, shape, timed: bool) -> dict:
+def _iters(py, kernel: int, plain: int) -> tuple[int, int]:
+    """Timing repetitions: fewer at the 1.40625° shapes (25 M outputs), where
+    the plain versions take tens to hundreds of ms a call."""
+    return (kernel, plain) if py.numel() < 5_000_000 else (max(kernel // 5, 20), 3)
+
+
+def band_inputs(field, py, bound: float, mode: str):
+    """Positions clamped to ±``bound`` px of their padded arrival row, as
+    ``interpolate`` clamps, and the band plan for them (None where the gate
+    is off)."""
+    import torch
+
+    from paradis_torch.ops.interp_band import band_spec
+
+    _, R, _, _ = field.shape
+    _, H, W, _ = py.shape
+    pad = (R - H) // 2
+    arr = torch.arange(H, dtype=torch.float32, device=py.device).view(1, H, 1, 1) + pad
+    py = torch.clamp(py, arr - bound, arr + bound).contiguous()
+    return py, band_spec(H, W, R, mode, bound)
+
+
+def grid_sample_args(field, py, px, dtype):
+    """``F.grid_sample``'s arguments for the same function: the field as
+    [B·V, 1, R, C] and normalised align-corners coordinates."""
+    import torch
+
+    B, R, C, V = field.shape
+    _, H, W, _ = py.shape
+    img = field.permute(0, 3, 1, 2).reshape(B * V, 1, R, C).contiguous()
+    gx = (px / (C - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
+    gy = (py / (R - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
+    return img, torch.stack([gx, gy], dim=-1).to(dtype).contiguous()
+
+
+def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
+                 band_px: float | None = None) -> dict:
+    """The forward kernel against its plain version; with ``band_px``, the
+    row-banded kernel on positions clamped to it, held against the banded
+    plain version and against the unbanded kernel on the same positions.
+    With ``timed``, the kernel's time beside the plain version's,
+    ``F.grid_sample``'s (and the unbanded kernel's) and the bound."""
     import torch
     import torch.nn.functional as F
 
     from paradis_torch.ops.interp import interp_plain
-    from paradis_torch.ops.interp_cuda import interp_fwd_cuda
+    from paradis_torch.ops.interp_band import interp_band_plain
+    from paradis_torch.ops.interp_cuda import interp_band_fwd_cuda, interp_fwd_cuda
 
     dtype = getattr(torch, dtype_name)
     B, R, C, V, H, W = shape
     field, py, px = interp_inputs(B, R, C, V, H, W, dtype, seed=len(mode) + V)
-    out = interp_fwd_cuda(field, py, px, mode)
-    ref = interp_plain(field, py, px, mode)
+    if band_px is None:
+        kernel = lambda: interp_fwd_cuda(field, py, px, mode)  # noqa: E731
+        plain = lambda: interp_plain(field, py, px, mode)  # noqa: E731
+    else:
+        py, spec = band_inputs(field, py, band_px, mode)
+        kernel = lambda: interp_band_fwd_cuda(field, py, px, spec, mode)  # noqa: E731
+        plain = lambda: interp_band_plain(field, py, px, spec, mode)  # noqa: E731
+    out = kernel()
+    refs = {"plain": plain()}
+    if band_px is not None:
+        refs["unbanded"] = interp_fwd_cuda(field, py, px, mode)
     torch.cuda.synchronize()
     atol, rtol = KERNEL_TOL[dtype_name]
-    diff = (out.float() - ref.float()).abs()
-    limit = atol + rtol * ref.float().abs()
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
-           "max_abs_err": float(diff.max()), "worst_err_over_limit": float((diff / limit).max()),
-           "ok": bool((diff <= limit).all()) and out.dtype == dtype
-           and bool(torch.isfinite(out).all())}
+           "ok": out.dtype == dtype and bool(torch.isfinite(out).all())}
+    if band_px is not None:
+        res.update(band_px=band_px, band_plan=list(spec))
+    for name, ref in refs.items():
+        diff = (out.float() - ref.float()).abs()
+        limit = atol + rtol * ref.float().abs()
+        key = "" if name == "plain" else f"{name}_"
+        res[f"{key}max_abs_err"] = float(diff.max())
+        res[f"{key}worst_err_over_limit"] = float((diff / limit).max())
+        res["ok"] = res["ok"] and bool((diff <= limit).all())
     if timed:
-        res["ms"] = time_ms(lambda: interp_fwd_cuda(field, py, px, mode), iters=200)
-        res["plain_ms"] = time_ms(lambda: interp_plain(field, py, px, mode), iters=20)
-        # F.grid_sample over [B·V, 1, R, C] with normalised align-corners
-        # coordinates: the same function, timed as the library yardstick
-        img = field.permute(0, 3, 1, 2).reshape(B * V, 1, R, C).contiguous()
-        gx = (px / (C - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
-        gy = (py / (R - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
-        grid = torch.stack([gx, gy], dim=-1).to(dtype).contiguous()
+        k_iters, p_iters = _iters(py, 200, 20)
+        res["ms"] = time_ms(kernel, iters=k_iters)
+        if band_px is not None:
+            res["unbanded_ms"] = time_ms(lambda: interp_fwd_cuda(field, py, px, mode),
+                                         iters=k_iters)
+        res["plain_ms"] = time_ms(plain, iters=p_iters, warmup=1 if p_iters <= 3 else 5)
+        img, grid = grid_sample_args(field, py, px, dtype)
 
         def lib():
             return F.grid_sample(img, grid, mode=mode, padding_mode="zeros",
                                  align_corners=True)
 
-        res["library_ms"] = time_ms(lib, iters=50)
+        res["library_ms"] = time_ms(lib, iters=max(k_iters // 4, 10))
         if dtype_name == "float32":
             lib_out = lib().reshape(B, V, H, W).permute(0, 2, 3, 1)
-            res["library_max_abs_diff_vs_plain"] = float((lib_out - ref).abs().max())
+            res["library_max_abs_diff_vs_plain"] = float((lib_out - refs["plain"]).abs().max())
         res["bound_ms"], res["bound_by"] = bound(field, py, mode)
     return res
 
@@ -226,15 +316,18 @@ def bound_bwd(field, py, g, mode: str):
 
 
 def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
-                     integer: bool = False) -> dict:
-    """The backward kernel against the plain backward; with ``timed``, its
-    time beside the plain backward's, ``F.grid_sample``'s backward and the
-    bound."""
+                     integer: bool = False, band_px: float | None = None) -> dict:
+    """The backward kernel against the plain backward; with ``band_px``, the
+    row-banded backward on positions clamped to it, held against the banded
+    plain backward and against the unbanded kernel on the same positions.
+    With ``timed``, its time beside the plain backward's, ``F.grid_sample``'s
+    backward (and the unbanded kernel's) and the bound."""
     import torch
     import torch.nn.functional as F
 
     from paradis_torch.ops.interp import interp_bwd_plain
-    from paradis_torch.ops.interp_cuda import interp_bwd_cuda
+    from paradis_torch.ops.interp_band import interp_band_bwd_plain
+    from paradis_torch.ops.interp_cuda import interp_band_bwd_cuda, interp_bwd_cuda
 
     dtype = getattr(torch, dtype_name)
     B, R, C, V, H, W = shape
@@ -243,34 +336,52 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
         py, px = py.round(), px.round()
     gen = torch.Generator(device="cuda").manual_seed(V)
     g = torch.randn(py.shape, generator=gen, device="cuda").to(dtype)
-    out = interp_bwd_cuda(field, py, px, g, mode)
-    ref = interp_bwd_plain(field, py, px, g, mode)
+    if band_px is None:
+        kernel = lambda: interp_bwd_cuda(field, py, px, g, mode)  # noqa: E731
+        plain = lambda: interp_bwd_plain(field, py, px, g, mode)  # noqa: E731
+    else:
+        py, spec = band_inputs(field, py, band_px, mode)
+        kernel = lambda: interp_band_bwd_cuda(field, py, px, g, spec, mode)  # noqa: E731
+        plain = lambda: interp_band_bwd_plain(field, py, px, g, spec, mode)  # noqa: E731
+    out = kernel()
+    refs = {"plain": plain()}
+    if band_px is not None:
+        refs["unbanded"] = interp_bwd_cuda(field, py, px, g, mode)
     torch.cuda.synchronize()
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
-           "integer_positions": integer, "max_abs_err": 0.0, "worst_err_over_limit": 0.0,
-           "ok": out[0].dtype == dtype}
-    for name, o, r in zip(("d_field", "d_py", "d_px"), out, ref):
-        atol, rtol = BWD_TOL[dtype_name][name]
-        diff = (o.float() - r.float()).abs()
-        res[f"{name}_max_abs_err"] = float(diff.max())
-        res["max_abs_err"] = max(res["max_abs_err"], float(diff.max()))
-        res["worst_err_over_limit"] = max(res["worst_err_over_limit"],
-                                          float((diff / (atol + rtol * r.float().abs())).max()))
-        res["ok"] = (res["ok"] and bool((diff <= atol + rtol * r.float().abs()).all())
-                     and bool(torch.isfinite(o).all()))
+           "integer_positions": integer, "ok": out[0].dtype == dtype}
+    if band_px is not None:
+        res.update(band_px=band_px, band_plan=list(spec))
+    for ref_name, ref in refs.items():
+        key = "" if ref_name == "plain" else f"{ref_name}_"
+        res[f"{key}max_abs_err"] = res[f"{key}worst_err_over_limit"] = 0.0
+        for name, o, r in zip(("d_field", "d_py", "d_px"), out, ref):
+            atol, rtol = BWD_TOL[dtype_name][name]
+            diff = (o.float() - r.float()).abs()
+            limit = atol + rtol * r.float().abs()
+            res[f"{key}{name}_max_abs_err"] = float(diff.max())
+            res[f"{key}max_abs_err"] = max(res[f"{key}max_abs_err"], float(diff.max()))
+            res[f"{key}worst_err_over_limit"] = max(res[f"{key}worst_err_over_limit"],
+                                                    float((diff / limit).max()))
+            res["ok"] = (res["ok"] and bool((diff <= limit).all())
+                         and bool(torch.isfinite(o).all()))
     if integer and mode == "bilinear":
         res["ok"] = res["ok"] and not out[1].any() and not out[2].any()
     if timed:
-        res["ms"] = time_ms(lambda: interp_bwd_cuda(field, py, px, g, mode), iters=100)
-        res["plain_ms"] = time_ms(lambda: interp_bwd_plain(field, py, px, g, mode), iters=10)
-        img = field.permute(0, 3, 1, 2).reshape(B * V, 1, R, C).contiguous().requires_grad_()
-        gx = (px / (C - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
-        gy = (py / (R - 1) * 2 - 1).permute(0, 3, 1, 2).reshape(B * V, 1, H * W)
-        grid = torch.stack([gx, gy], dim=-1).to(dtype).contiguous().requires_grad_()
+        k_iters, p_iters = _iters(py, 100, 10)
+        res["ms"] = time_ms(kernel, iters=k_iters)
+        if band_px is not None:
+            res["unbanded_ms"] = time_ms(lambda: interp_bwd_cuda(field, py, px, g, mode),
+                                         iters=k_iters)
+        res["plain_ms"] = time_ms(plain, iters=p_iters, warmup=1 if p_iters <= 3 else 5)
+        img, grid = grid_sample_args(field, py, px, dtype)
+        img.requires_grad_()
+        grid.requires_grad_()
         lib_out = F.grid_sample(img, grid, mode=mode, padding_mode="zeros", align_corners=True)
         g_lib = g.permute(0, 3, 1, 2).reshape(B * V, 1, 1, H * W).contiguous()
         res["library_ms"] = time_ms(
-            lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True), iters=50)
+            lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True),
+            iters=max(k_iters // 2, 10))
         res["bound_ms"], res["bound_by"] = bound_bwd(field, py, g, mode)
     return res
 
@@ -319,31 +430,61 @@ def profile_steps(run, n_steps: int, wall_per_step_s: float) -> dict:
     }
 
 
-def run_forecast(dtype_name: str, card: str) -> dict:
-    """40-step full-width rollout; launch counts, finiteness, kernel-vs-plain."""
+def band_on(model, nlat: int, nlon: int) -> bool:
+    """Whether the model's interpolation takes the row-banded kernels (a
+    bound is set and the band gate passes at the padded grid)."""
+    from paradis_torch.ops.interp_band import band_spec
+
+    layer = model.layers[0].advection
+    pad = 2 if layer.interpolation == "bicubic" else 1
+    H, W = model.mesh_size_coarse
+    return band_spec(H, W, H + 2 * pad, layer.interpolation, model.band_max_dy_pix) is not None
+
+
+def launch_counts() -> list[int]:
+    """The four kernel wrappers' launch counts: forward, backward, banded
+    forward, banded backward."""
+    from paradis_torch.ops import interp_cuda as ic
+
+    return [ic.launches, ic.bwd_launches, ic.band_launches, ic.band_bwd_launches]
+
+
+def reset_counts() -> None:
+    from paradis_torch.ops import interp_cuda as ic
+
+    ic.launches = ic.bwd_launches = ic.band_launches = ic.band_bwd_launches = 0
+
+
+def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) -> dict:
+    """40-step full-width rollout on ``grid``; launch counts, finiteness,
+    kernel-vs-plain.  With ``compute.interp_band_rad`` among ``overrides`` and
+    the band gate on, every interpolation must go through the banded
+    kernel."""
     import numpy as np
     import torch
 
     from paradis_torch.config import load_config
     from paradis_torch.forecast import make_forecast_rollout
     from paradis_torch.model import Paradis
-    from paradis_torch.ops import interp_cuda
     from paradis_torch.sphere.geometry import equiangular_lat_lon
 
     dtype = getattr(torch, dtype_name)
-    cfg = load_config()
+    nlat, nlon = grid
+    cfg = load_config(overrides=list(overrides))
     cfg.forecast.output_frequency = 1
     d = flagship_dims(cfg)
-    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+    lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
+    torch.cuda.reset_peak_memory_stats()
     model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
                                 lat_deg=lat, lon_deg=lon, dtype=dtype, device="cuda")
     n_layers = len(model.layers)
     n_params = sum(p.numel() for p in model.parameters())
+    banded = band_on(model, nlat, nlon)
     rng = np.random.default_rng(0)
     batch = {
-        "input": rng.normal(size=(1, NLAT, NLON, d["n_common"] * d["n_time"])),
-        "forcings": rng.normal(size=(1, STEPS, NLAT, NLON, d["n_forcings"] * d["n_time"])),
-        "constants": rng.normal(size=(1, NLAT, NLON, d["n_const"])),
+        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
+        "forcings": rng.normal(size=(1, STEPS, nlat, nlon, d["n_forcings"] * d["n_time"])),
+        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
     }
     batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
     rollout = make_forecast_rollout(model, cfg)
@@ -354,13 +495,14 @@ def run_forecast(dtype_name: str, card: str) -> dict:
 
     times, counts, out = [], [], None
     for _ in range(3):
-        interp_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = rollout(batch, d["n_common"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts.append(interp_cuda.launches)
-    expected = n_layers * STEPS
+        counts.append(launch_counts())
+    # the forward kernel, or the banded one, once per layer and step
+    expected = [0, 0, n_layers * STEPS, 0] if banded else [n_layers * STEPS, 0, 0, 0]
     median = sorted(times)[1]
     short = dict(batch, forcings=batch["forcings"][:, :PROFILE_STEPS])
     profile = profile_steps(lambda: rollout(short, d["n_common"]), PROFILE_STEPS,
@@ -370,15 +512,17 @@ def run_forecast(dtype_name: str, card: str) -> dict:
     model_in = torch.cat([batch["input"], batch["forcings"][:, 0], batch["constants"]], dim=-1)
     with torch.inference_mode():
         model.set_interp_impl("plain")
-        before = interp_cuda.launches
+        reset_counts()
         plain = model(model_in).float()
-        plain_launches = interp_cuda.launches - before
+        plain_launches = launch_counts()
         model.set_interp_impl("auto")
     torch.cuda.synchronize()
     step_err = float((out[:, 0] - plain).abs().max())
     step_scale = float(plain.abs().max())
     res = {
-        "dtype": dtype_name, "card": card, "params": n_params, "layers": n_layers,
+        "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": list(overrides),
+        "band_px": model.band_max_dy_pix, "banded": banded,
+        "params": n_params, "layers": n_layers,
         "out_shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
         "out_std": float(out.std()), "launches_per_rollout": counts,
         "expected_launches": expected, "rollout_s": times,
@@ -388,37 +532,42 @@ def run_forecast(dtype_name: str, card: str) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": profile,
     }
-    res["ok"] = (res["finite"] and all(c == expected for c in counts) and plain_launches == 0
-                 and res["out_shape"] == [1, STEPS, NLAT, NLON, d["n_out"]]
+    res["ok"] = (res["finite"] and all(c == expected for c in counts)
+                 and plain_launches == [0, 0, 0, 0]
+                 and res["out_shape"] == [1, STEPS, nlat, nlon, d["n_out"]]
                  and step_err <= res["first_step_limit"] and res["out_std"] > 0)
     del model
     torch.cuda.empty_cache()
     return res
 
 
-def run_train(dtype_name: str, card: str) -> dict:
-    """Full-width train steps: finiteness, loss decrease, launch counts and
-    the first step's gradients through the kernels against the plain path."""
+def run_train(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=TRAIN_OVERRIDES,
+              steps: int = TRAIN_STEPS, grad_tol=GRAD_TOL) -> dict:
+    """Full-width train steps on ``grid``: finiteness, loss decrease, launch
+    counts and the first step's gradients through the kernels against the
+    plain path.  Under ``compute.gradient_checkpointing`` the backward
+    replays each layer's forward, so the forward kernel runs twice a layer."""
     import numpy as np
     import torch
 
     from paradis_torch.config import load_config
     from paradis_torch.data import dyn_output_features
     from paradis_torch.model import Paradis
-    from paradis_torch.ops import interp_cuda
     from paradis_torch.sphere.geometry import equiangular_lat_lon
     from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
                                      create_train_state, make_train_step, set_learning_rate)
 
-    overrides = TRAIN_OVERRIDES + ([] if dtype_name == "bfloat16" else ["compute.use_amp=false"])
+    nlat, nlon = grid
+    overrides = list(overrides) + ([] if dtype_name == "bfloat16" else ["compute.use_amp=false"])
     cfg = load_config(overrides=overrides)
     d = flagship_dims(cfg)
     S = int(cfg.model.forecast_steps)
-    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+    lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
     torch.cuda.reset_peak_memory_stats()
     model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
                                 lat_deg=lat, lon_deg=lon, device="cuda")
     n_layers = len(model.layers)
+    banded = band_on(model, nlat, nlon)
     loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
                                        device="cuda")
     optimizer = build_optimizer(cfg, model)
@@ -427,10 +576,10 @@ def run_train(dtype_name: str, card: str) -> dict:
     train_step = make_train_step(model, loss_fn, cfg, optimizer)
     rng = np.random.default_rng(0)
     batch = {
-        "input": rng.normal(size=(1, NLAT, NLON, d["n_common"] * d["n_time"])),
-        "target": rng.normal(size=(1, S, NLAT, NLON, d["n_out"])),
-        "forcings": rng.normal(size=(1, S, NLAT, NLON, d["n_forcings"] * d["n_time"])),
-        "constants": rng.normal(size=(1, NLAT, NLON, d["n_const"])),
+        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
+        "target": rng.normal(size=(1, S, nlat, nlon, d["n_out"])),
+        "forcings": rng.normal(size=(1, S, nlat, nlon, d["n_forcings"] * d["n_time"])),
+        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
     }
     batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
 
@@ -441,11 +590,10 @@ def run_train(dtype_name: str, card: str) -> dict:
     for impl in ("plain", "auto"):
         model.set_interp_impl(impl)
         optimizer.zero_grad()
-        before = (interp_cuda.launches, interp_cuda.bwd_launches)
+        reset_counts()
         loss_fn(model(model_in), batch["target"][:, 0]).backward()
         torch.cuda.synchronize()
-        grad_launches[impl] = [interp_cuda.launches - before[0],
-                               interp_cuda.bwd_launches - before[1]]
+        grad_launches[impl] = launch_counts()
         grads[impl] = torch.cat([p.grad.flatten() for p in optimizer.params])
     model.set_interp_impl("auto")
     optimizer.zero_grad()
@@ -454,14 +602,14 @@ def run_train(dtype_name: str, card: str) -> dict:
     del grads
 
     losses, gnorms, counts, times = [], [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         set_learning_rate(optimizer, lr_at(state.step))
-        interp_cuda.launches = interp_cuda.bwd_launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         metrics = train_step(state, batch, d["n_common"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts.append([interp_cuda.launches, interp_cuda.bwd_launches])
+        counts.append(launch_counts())
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
     median = float(np.median(times[1:]))
@@ -483,17 +631,23 @@ def run_train(dtype_name: str, card: str) -> dict:
     opt_s = float(np.median(opt_times))
     opt_profile = profile_steps(optimizer.step, 1, opt_s)
 
-    expected = n_layers * S
+    # forward and backward kernel (or their banded pair) once per layer and
+    # forecast step; the forward twice under checkpointing (the replay)
+    fwd = n_layers * S * (2 if model.gradient_checkpointing else 1)
+    expected = [0, 0, fwd, n_layers * S] if banded else [fwd, n_layers * S, 0, 0]
     res = {
-        "dtype": dtype_name, "card": card, "model_dtype": str(model.dtype),
+        "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": overrides,
+        "band_px": model.band_max_dy_pix, "banded": banded,
+        "gradient_checkpointing": model.gradient_checkpointing,
+        "model_dtype": str(model.dtype),
         "optimizer": optimizer.name, "ns_dtype": str(optimizer.ns_dtype), "S": S,
         "layers": n_layers, "params": sum(p.numel() for p in model.parameters()),
-        "losses": losses, "grad_norms": gnorms, "lrs": [lr_at(i) for i in range(TRAIN_STEPS)],
+        "losses": losses, "grad_norms": gnorms, "lrs": [lr_at(i) for i in range(steps)],
         "launches_per_step": counts, "expected_launches": expected, "step_s": times,
         "train_steps_per_s": 1.0 / median,
         "first_step_grad_launches": grad_launches,
         "first_step_grad_max_abs": grad_scale, "first_step_grad_rel_err_vs_plain": grad_err,
-        "first_step_grad_limit": GRAD_TOL[dtype_name],
+        "first_step_grad_limit": grad_tol[dtype_name],
         "optimizer_step_wall_ms": opt_s * 1e3, "optimizer_share_of_step_wall": opt_s / median,
         "optimizer_profile": opt_profile,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -501,10 +655,10 @@ def run_train(dtype_name: str, card: str) -> dict:
     }
     res["ok"] = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
                  and losses[-1] < losses[0]
-                 and all(c == [expected, expected] for c in counts)
-                 and grad_launches == {"plain": [0, 0], "auto": [expected, expected]}
+                 and all(c == expected for c in counts)
+                 and grad_launches == {"plain": [0, 0, 0, 0], "auto": expected}
                  and model.dtype == getattr(torch, dtype_name)
-                 and grad_err <= GRAD_TOL[dtype_name])
+                 and grad_err <= grad_tol[dtype_name])
     del model, optimizer, state, train_step
     torch.cuda.empty_cache()
     return res
@@ -567,45 +721,85 @@ def main() -> int:
     if bad:
         raise SystemExit(f"backward kernel disagrees with its plain version: {bad}")
 
-    runs = {}
+    # the row-banded pair at the 1.40625° shapes, positions clamped to the
+    # bound compute.interp_band_rad gives on that grid, and at an odd tail
+    # shape where the band gate is on (bands of 8 rows over 16 padded rows)
+    from paradis_torch.model.paradis import band_bound_pixels
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+
+    hr_px = band_bound_pixels(BAND_RAD, equiangular_lat_lon(*HR, include_poles=False)[0])
+    hr = (1, HR[0] + 4, HR[1] + 4, 768, *HR)      # bicubic: 132 × 260
+    hr_bl = (1, HR[0] + 2, HR[1] + 2, 768, *HR)   # bilinear: 130 × 258
+    band_tail = {"bicubic": (1, 36, 19, 77, 32, 15), "bilinear": (1, 34, 17, 77, 32, 15)}
+    band_checks, band_bwd_checks = [], []
     for dtype_name in ("float32", "bfloat16"):
-        res = run_forecast(dtype_name, card)
-        log("[forecast] " + json.dumps(res))
-        if not res["ok"]:
-            raise SystemExit(f"forecast rollout failed its checks: {res}")
-        runs[dtype_name] = res
-        log(f"[forecast] {dtype_name}: {res['forecast_steps_per_s']:.2f} steps/s "
-            f"({STEPS}-step rollout, batch 1) on {card}")
+        for mode, shape in (("bicubic", hr), ("bilinear", hr_bl)):
+            band_checks.append(check_kernel(mode, dtype_name, shape, timed=True, band_px=hr_px))
+            band_bwd_checks.append(check_bwd_kernel(mode, dtype_name, shape, timed=True,
+                                                    band_px=hr_px))
+        for mode, shape in band_tail.items():
+            band_checks.append(check_kernel(mode, dtype_name, shape, timed=False, band_px=1.5))
+            band_bwd_checks.append(check_bwd_kernel(mode, dtype_name, shape, timed=False,
+                                                    band_px=1.5))
+    for c in band_checks:
+        log("[kernel-band] " + json.dumps(c))
+    for c in band_bwd_checks:
+        log("[kernel-band-bwd] " + json.dumps(c))
+    bad = [c for c in band_checks + band_bwd_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"banded kernel disagrees with its plain version or the unbanded "
+                         f"kernel: {bad}")
 
-    trains = {}
-    for dtype_name in ("bfloat16", "float32"):
-        res = run_train(dtype_name, card)
-        log("[train] " + json.dumps(res))
-        if not res["ok"]:
-            raise SystemExit(f"train steps failed their checks: {res}")
-        trains[dtype_name] = res
-        log(f"[train] {dtype_name}: {res['train_steps_per_s']:.2f} train steps/s = samples/s "
-            f"(batch 1, S = {res['S']}, {res['optimizer']}) on {card}")
+    runs, hr_runs = {}, {}
+    for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
+        for dtype_name in ("float32", "bfloat16"):
+            res = run_forecast(dtype_name, card, grid, overrides)
+            log("[forecast] " + json.dumps(res))
+            if not res["ok"]:
+                raise SystemExit(f"forecast rollout failed its checks: {res}")
+            store[dtype_name] = res
+            log(f"[forecast] {grid[0]}x{grid[1]} {dtype_name}: "
+                f"{res['forecast_steps_per_s']:.2f} steps/s ({STEPS}-step rollout, batch 1, "
+                f"banded {res['banded']}) on {card}")
 
+    trains, hr_trains = {}, {}
+    for grid, overrides, steps, tol, store in (
+            ((NLAT, NLON), TRAIN_OVERRIDES, TRAIN_STEPS, GRAD_TOL, trains),
+            (HR, HR_TRAIN_OVERRIDES, HR_TRAIN_STEPS, HR_GRAD_TOL, hr_trains)):
+        for dtype_name in ("bfloat16", "float32"):
+            res = run_train(dtype_name, card, grid, overrides, steps, tol)
+            log("[train] " + json.dumps(res))
+            if not res["ok"]:
+                raise SystemExit(f"train steps failed their checks: {res}")
+            store[dtype_name] = res
+            log(f"[train] {grid[0]}x{grid[1]} {dtype_name}: {res['train_steps_per_s']:.2f} "
+                f"train steps/s = samples/s (batch 1, S = {res['S']}, {res['optimizer']}, "
+                f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
+                f"on {card}")
+
+    # one record per kernel variant on the main paths (bicubic), its launches
+    # counted in the run of the path that takes it: the forward kernels in
+    # the first rollout, the backward kernels in the first train step
     kernels = []
-    for c in checks:
-        if c["mode"] == "bicubic" and "ms" in c:  # the main path's kernel variants
-            kernels.append({
-                "name": f"interp_fwd[bicubic,{c['dtype']}]", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": REPLACES,
-                "launches": runs[c["dtype"]]["launches_per_rollout"][0],
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"]})
-    for c in bwd_checks:
-        if c["mode"] == "bicubic" and "ms" in c:  # the train path's kernel variants
-            kernels.append({
-                "name": f"interp_bwd[bicubic,{c['dtype']}]", "route": "cuda",
-                "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-                "launches": trains[c["dtype"]]["launches_per_step"][0][1],
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"]})
+    for name, source, replaces, found, launches in (
+            ("interp_fwd", KERNEL_SOURCE, REPLACES, checks,
+             lambda dt: runs[dt]["launches_per_rollout"][0][0]),
+            ("interp_bwd", BWD_SOURCE, BWD_REPLACES, bwd_checks,
+             lambda dt: trains[dt]["launches_per_step"][0][1]),
+            ("interp_band_fwd", BAND_SOURCE, BAND_REPLACES, band_checks,
+             lambda dt: hr_runs[dt]["launches_per_rollout"][0][2]),
+            ("interp_band_bwd", BAND_BWD_SOURCE, BAND_BWD_REPLACES, band_bwd_checks,
+             lambda dt: hr_trains[dt]["launches_per_step"][0][3])):
+        for c in found:
+            if c["mode"] == "bicubic" and "ms" in c:
+                rec = {"name": f"{name}[bicubic,{c['dtype']}]", "route": "cuda",
+                       "source": source, "replaces": replaces, "launches": launches(c["dtype"]),
+                       "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                       "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+                if "unbanded_ms" in c:
+                    rec["unbanded_ms"] = c["unbanded_ms"]
+                kernels.append(rec)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

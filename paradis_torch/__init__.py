@@ -4,8 +4,10 @@ A port of ``paradis_tpu`` (JAX on a TPU) that sits beside it.  Layout mirrors
 the JAX package (``sphere/``, ``ops/``, ``model/``, ``forecast/``, ``train/``,
 ``data/``, ``utils/``); tensors are channels-last ``[B, H, W, C]`` as there.
 The hand-written kernels are the gather-interpolation (``csrc/interp_fwd.cu``,
-on the forecast and train paths) and its backward (``csrc/interp_bwd.cu``, on
-the train path).
+on the forecast and train paths), its backward (``csrc/interp_bwd.cu``, on
+the train path), and their row-banded pair (``csrc/interp_band_fwd.cu``,
+``csrc/interp_band_bwd.cu``), which ``compute.interp_band_rad`` selects where
+the band is small against the padded rows (the 1.40625° grid).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit device they raise rather than fall back to the CPU.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``_build/lib<name>-<hash>.so`` beside this file (a
-directory ``.gitignore`` lists).  The hash covers the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.  ``build``
+directory ``.gitignore`` lists).  The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  ``build``
 starts one ``nvcc`` per source, all at once, and waits for every one.
 Nothing here runs at import time.
 """
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -30,48 +30,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "interp_taps.cuh"
+
 namespace {
 
+using namespace paradis_interp;
+
 constexpr int kThreads = 256;
-constexpr float kCubicA = -0.75f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Tap offsets start at kFirst; weights for fractional coordinate t in [0, 1).
-template <bool kBicubic> struct Taps;
-
-template <> struct Taps<true> {
-  static constexpr int kN = 4;
-  static constexpr int kFirst = -1;
-  __device__ __forceinline__ static void weights(float t, float w[4]) {
-    const float a = kCubicA;
-    // far(x) for 1 < |x| < 2, near(x) for |x| <= 1 (ATen's cubic convolution)
-    float x = t + 1.0f;
-    w[0] = ((a * x - 5.0f * a) * x + 8.0f * a) * x - 4.0f * a;
-    x = t;
-    w[1] = ((a + 2.0f) * x - (a + 3.0f)) * x * x + 1.0f;
-    x = 1.0f - t;
-    w[2] = ((a + 2.0f) * x - (a + 3.0f)) * x * x + 1.0f;
-    x = 2.0f - t;
-    w[3] = ((a * x - 5.0f * a) * x + 8.0f * a) * x - 4.0f * a;
-  }
-};
-
-template <> struct Taps<false> {
-  static constexpr int kN = 2;
-  static constexpr int kFirst = 0;
-  __device__ __forceinline__ static void weights(float t, float w[2]) {
-    w[0] = 1.0f - t;
-    w[1] = t;
-  }
-};
 
 template <bool kBicubic, typename T>
 __global__ void __launch_bounds__(kThreads)

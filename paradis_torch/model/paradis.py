@@ -12,9 +12,11 @@ unstacked by the weight bridge (``model/weights.py``).  Mixed precision:
 float32 parameters, compute in ``dtype``, float32 for ChannelNorm, GlobalBias
 and the ``alpha_adv`` sigmoid.  The model serves the forecast path and
 trains (``train/step.py``): gradients flow through every block, and through
-the interpolation by its backward kernel on a card.  Spatial sharding
-constraints and rematerialisation (``compute.gradient_checkpointing``) are
-not ported.
+the interpolation by its backward kernel on a card.  ``band_bound_rad``
+(``compute.interp_band_rad``) bounds the departure rows and so licenses the
+row-banded interpolation kernels.  ``gradient_checkpointing`` recomputes
+each physics layer in the backward (the JAX package's ``remat_policy:
+none``).  Spatial sharding constraints are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from paradis_torch import resolve_device
 from paradis_torch.ops.advection import INTERP_IMPLS, NeuralSemiLagrangian
@@ -39,6 +42,33 @@ def get_scaled_timestep(dt_seconds: float) -> float:
     return dt_seconds * EARTH_ROTATION_RATE
 
 
+def check_remat_policy(name) -> None:
+    """``compute.remat_policy`` under gradient checkpointing: only ``none``
+    (full recomputation of each physics layer) is ported."""
+    if name in ("", "none", None):
+        return
+    if name in ("advect", "advect_pos"):
+        raise NotImplementedError(
+            f"compute.remat_policy={name!r} (save the interpolation output"
+            f"{' and the departure positions' if name == 'advect_pos' else ''} through "
+            f"the recomputation) is not ported yet: see ROADMAP.md Queue 1")
+    raise ValueError(f"compute.remat_policy must be none|advect|advect_pos, got {name!r}")
+
+
+def band_bound_pixels(band_bound_rad, lat_deg, coarsening_factor: int = 1):
+    """The departure-row bound in pixels of the (coarse) latitude spacing for
+    a bound of ``band_bound_rad`` radians; None when unset or undefined."""
+    if not band_bound_rad:
+        return None
+    lat = np.deg2rad(np.asarray(lat_deg, np.float64))[::coarsening_factor]
+    if len(lat) < 2:
+        return None
+    spacing = (lat.max() - lat.min()) / (len(lat) - 1)
+    if spacing <= 0:
+        return None
+    return float(band_bound_rad) / float(spacing)
+
+
 class PhysicsLayer(nn.Module):
     """One ADR step: transport → mixing → forcing."""
 
@@ -46,6 +76,7 @@ class PhysicsLayer(nn.Module):
                  dt: float, n_static_hidden: int, *, bias_channels: int = 8,
                  bias_rank: int = 128, activation: str = "SiLU",
                  interpolation: str = "bicubic", fast_trig: bool = False,
+                 band_max_dy_pix: float | None = None,
                  velocity_layers=("CLinear", "SepConv"),
                  velocity_hidden=384, diffusion_layers=("SepConv",), diffusion_hidden=0,
                  reaction_layers=("CLinear",) * 4, reaction_hidden=896,
@@ -65,7 +96,8 @@ class PhysicsLayer(nn.Module):
         self.advection = NeuralSemiLagrangian(
             hidden_dim, num_vels, mesh_size, down_layers=adv_down_layers,
             down_hidden=adv_down_hidden, up_layers=adv_up_layers, up_hidden=adv_up_hidden,
-            interpolation=interpolation, fast_trig=fast_trig, dtype=dtype, generator=generator)
+            interpolation=interpolation, fast_trig=fast_trig, band_max_dy_pix=band_max_dy_pix,
+            dtype=dtype, generator=generator)
         self.diffusion = GMBlock(diffusion_layers, hidden_dim, hidden_dim,
                                  hidden_dim=diffusion_hidden, **common)
         self.reaction = GMBlock(reaction_layers, hidden_dim + n_static_hidden, hidden_dim,
@@ -90,7 +122,9 @@ class Paradis(nn.Module):
                  hidden_dim: int = 1024, num_vels: int = 768, num_layers: int = 8,
                  base_dt: float = 21600.0, bias_channels: int = 8, bias_rank: int = 128,
                  activation: str = "SiLU", interpolation: str = "bicubic",
-                 fast_trig: bool = False, coarsening_factor: int = 1, input_layers=("CLinear",), input_hidden=0,
+                 fast_trig: bool = False, band_bound_rad: float | None = None,
+                 coarsening_factor: int = 1, gradient_checkpointing: bool = False,
+                 remat_policy: str = "none", input_layers=("CLinear",), input_hidden=0,
                  output_layers=("CLinear",) * 3, output_hidden=768,
                  velocity_layers=("CLinear", "SepConv"), velocity_hidden=384,
                  diffusion_layers=("SepConv",), diffusion_hidden=0,
@@ -102,10 +136,14 @@ class Paradis(nn.Module):
         CPU, so a seed gives the same weights on every device), then move to
         ``device`` (``cuda`` unless given; raises when there is none)."""
         super().__init__()
+        if gradient_checkpointing:
+            check_remat_policy(remat_policy)
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         self.n_static = n_static
         self.dtype = dtype
+        self.gradient_checkpointing = gradient_checkpointing
+        self.band_max_dy_pix = band_bound_pixels(band_bound_rad, lat_deg, coarsening_factor)
         self.mesh_size = (len(lat_deg), len(lon_deg))
         H, W = self.mesh_size
         s = coarsening_factor
@@ -135,7 +173,7 @@ class Paradis(nn.Module):
             PhysicsLayer(hidden_dim, num_vels, self.mesh_size_coarse, self.dt, STATIC_DIM,
                          bias_channels=bias_channels, bias_rank=bias_rank,
                          activation=activation, interpolation=interpolation,
-                         fast_trig=fast_trig,
+                         fast_trig=fast_trig, band_max_dy_pix=self.band_max_dy_pix,
                          velocity_layers=velocity_layers, velocity_hidden=velocity_hidden,
                          diffusion_layers=diffusion_layers, diffusion_hidden=diffusion_hidden,
                          reaction_layers=reaction_layers, reaction_hidden=reaction_hidden,
@@ -166,11 +204,6 @@ class Paradis(nn.Module):
         if impl != "auto":
             raise ValueError(f"compute.advection_impl={impl!r}: paradis_torch takes only "
                              f"'auto' (the kernel on a card, the plain version on the CPU)")
-        if compute.get("interp_band_rad"):
-            raise NotImplementedError("compute.interp_band_rad > 0 needs the row-banded "
-                                      "interpolation kernel, which is not ported yet")
-        if compute.get("gradient_checkpointing"):
-            raise NotImplementedError("compute.gradient_checkpointing is not ported yet")
         if dtype is None:
             dtype = torch.bfloat16 if compute.use_amp else torch.float32
         if seed is None:
@@ -190,7 +223,10 @@ class Paradis(nn.Module):
             activation=cfg.model.activation,
             interpolation=cfg.model.adv_interpolation,
             fast_trig=bool(compute.get("fast_departure_trig", False)),
+            band_bound_rad=compute.get("interp_band_rad", None) or None,
             coarsening_factor=cfg.model.get("coarsening_factor", 1),
+            gradient_checkpointing=bool(compute.get("gradient_checkpointing", False)),
+            remat_policy=str(compute.get("remat_policy", "none") or "none"),
             input_layers=tuple(pb.input_proj.layers),
             input_hidden=pb.input_proj.hidden_dim,
             output_layers=tuple(pb.output_proj.layers),
@@ -239,7 +275,12 @@ class Paradis(nn.Module):
         skip = hidden
         hidden = self.downsample(hidden)
         hidden_static = self.downsample(hidden_static)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer in self.layers:
-            hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
+            if remat:
+                hidden = checkpoint(layer, hidden, hidden_static, self.lat_grid, self.lon_grid,
+                                    use_reentrant=False)
+            else:
+                hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
         hidden = periodic_upsample(hidden, H, W) + skip
         return self.output_proj(hidden)

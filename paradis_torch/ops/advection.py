@@ -17,6 +17,7 @@ from torch import nn
 
 from paradis_torch.ops.blocks import GMBlock
 from paradis_torch.ops.interp import check_mode
+from paradis_torch.ops.interp_band import band_spec
 from paradis_torch.ops.interp_cuda import Interp
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
@@ -64,17 +65,23 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
     any device (the reference the kernels are held against).
 
     ``max_dy_pix`` is part of the op's contract on every backend: when given,
-    departure rows are clamped to ±``max_dy_pix`` of their arrival row.
+    departure rows are clamped to ±``max_dy_pix`` of their arrival row (once,
+    here; d_py is zero where the clamp binds).  Where the band plan
+    (``interp_band.band_spec``) then finds banding worth it, the pairing runs
+    the row-banded kernels (or their plain versions), else the unbanded ones.
     """
     check_mode(mode)
     if impl not in INTERP_IMPLS:
         raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
+    spec = None
     if max_dy_pix is not None:
-        H = pix_y.shape[1]
-        pad = (field.shape[1] - H) // 2
+        _, H, W, _ = pix_y.shape
+        R = field.shape[1]
+        pad = (R - H) // 2
         arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + pad
         pix_y = torch.clamp(pix_y.float(), arr - max_dy_pix, arr + max_dy_pix)
-    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain")
+        spec = band_spec(H, W, R, mode, max_dy_pix)
+    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain", spec)
 
 
 class NeuralSemiLagrangian(nn.Module):
@@ -82,15 +89,20 @@ class NeuralSemiLagrangian(nn.Module):
 
     ``impl`` is ``auto``; only ``Paradis.set_interp_impl`` switches it to
     ``plain``, to hold the kernel path against the plain one on a card.
+    ``band_max_dy_pix`` bounds the departure rows in pixels
+    (``compute.interp_band_rad``, converted by the model), which licenses the
+    row-banded kernels; None leaves the rows free.
     """
 
     def __init__(self, hidden_dim: int, num_vels: int, mesh_size: tuple[int, int], *,
                  down_layers=("SepConv",), down_hidden=0, up_layers=("CLinear",),
                  up_hidden=0, interpolation: str = "bicubic", fast_trig: bool = False,
-                 dtype: torch.dtype = torch.float32, generator: torch.Generator):
+                 band_max_dy_pix: float | None = None, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator):
         super().__init__()
         check_mode(interpolation)
         self.interpolation = interpolation
+        self.band_max_dy_pix = band_max_dy_pix
         self.impl = "auto"
         self.fast_trig = fast_trig
         self.down_projection = GMBlock(down_layers, hidden_dim, num_vels, mesh_size,
@@ -104,5 +116,5 @@ class NeuralSemiLagrangian(nn.Module):
         pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,
                                               fast_trig=self.fast_trig)
         out = interpolate(geocyclic_pad(proj, pad), pix_y + pad, pix_x + pad,
-                          self.interpolation, self.impl)
+                          self.interpolation, self.impl, max_dy_pix=self.band_max_dy_pix)
         return self.up_projection(enforce_pole_continuity(out))

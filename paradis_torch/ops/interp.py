@@ -74,9 +74,20 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"mode must be bilinear|bicubic, got {mode!r}")
 
 
+def _row_window(rows, R: int):
+    """``(lo, hi)``: the rows a tap may lie in, ``[lo, hi)``, broadcastable to
+    [B, H·W, V]; the whole field when ``rows`` is None."""
+    return (0.0, float(R)) if rows is None else rows
+
+
 def interp_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
-                 mode: str = "bicubic") -> torch.Tensor:
-    """Sample ``field`` [B, R, C, V] at ``(pix_y, pix_x)`` [B, H, W, V]."""
+                 mode: str = "bicubic", rows=None) -> torch.Tensor:
+    """Sample ``field`` [B, R, C, V] at ``(pix_y, pix_x)`` [B, H, W, V].
+
+    ``rows``, a pair of float tensors broadcastable to [B, H·W, V], restricts
+    each position's taps to the rows ``[lo, hi)``; the row-banded version
+    (``ops/interp_band.py``) passes its band there.
+    """
     check_mode(mode)
     B, R, C, V = field.shape
     _, H, W, _ = pix_y.shape
@@ -85,11 +96,12 @@ def interp_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
     px = pix_x.float().reshape(B, H * W, V)
     y0, y_off, wy = tap_weights(py, mode)
     x0, x_off, wx = tap_weights(px, mode)
+    lo, hi = _row_window(rows, R)
 
     acc = torch.zeros_like(py)
     for dy, w_row in zip(y_off, wy):
         r = y0 + dy
-        r_ok = (r >= 0) & (r <= R - 1)           # False for NaN positions too
+        r_ok = (r >= lo) & (r < hi)              # False for NaN positions too
         row = torch.zeros_like(py)
         for dx, w_col in zip(x_off, wx):
             c = x0 + dx
@@ -102,7 +114,7 @@ def interp_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
 
 
 def interp_bwd_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
-                     g: torch.Tensor, mode: str = "bicubic"):
+                     g: torch.Tensor, mode: str = "bicubic", rows=None):
     """Gradients of ``interp_plain`` for the output cotangent ``g`` [B, H, W, V].
 
     Returns ``(d_field, d_py, d_px)``:
@@ -111,7 +123,8 @@ def interp_bwd_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tens
     in float32.  Written out tap by tap (not autograd of ``interp_plain``) so
     that K′ follows ``kernel_derivative``.  Taps outside the field and
     non-finite positions contribute to none of the three; sums are float32,
-    over a tap row's columns first, then over rows.
+    over a tap row's columns first, then over rows.  ``rows`` as in
+    ``interp_plain``.
     """
     check_mode(mode)
     B, R, C, V = field.shape
@@ -125,13 +138,14 @@ def interp_bwd_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tens
     ty, tx = py - y0, px - x0
     dwy = [kernel_derivative(ty - k, mode) for k in y_off]
     dwx = [kernel_derivative(tx - k, mode) for k in x_off]
+    lo, hi = _row_window(rows, R)
 
     d_flat = torch.zeros_like(flat)
     acc_y = torch.zeros_like(py)
     acc_x = torch.zeros_like(py)
     for dy, w_row, dw_row in zip(y_off, wy, dwy):
         r = y0 + dy
-        r_ok = (r >= 0) & (r <= R - 1)           # False for NaN positions too
+        r_ok = (r >= lo) & (r < hi)              # False for NaN positions too
         row_w = torch.zeros_like(py)
         row_dw = torch.zeros_like(py)
         g_row = gf * w_row

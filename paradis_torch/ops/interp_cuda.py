@@ -3,15 +3,18 @@ autograd pairing.
 
 ``interp_fwd_cuda`` (``csrc/interp_fwd.cu``) replaces the TPU kernel
 ``paradis_tpu/ops/interp_pallas.py:_fwd_kernel``; ``interp_bwd_cuda``
-(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel``.  Each launches its kernel
-on CUDA tensors or raises: there is no fallback.  ``Interp`` is the
-``torch.autograd.Function`` around the pair: on CUDA tensors it runs the two
-kernels, on CPU tensors (or when asked for ``plain``) the two plain versions
-of ``ops/interp.py``.
+(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel``; ``interp_band_fwd_cuda``
+(``csrc/interp_band_fwd.cu``) and ``interp_band_bwd_cuda``
+(``csrc/interp_band_bwd.cu``) replace ``_fwd_kernel_banded`` and
+``_bwd_kernel_banded``.  Each launches its kernel on CUDA tensors or raises:
+there is no fallback.  ``Interp`` is the ``torch.autograd.Function`` around
+a pair: without a band plan the unbanded kernels, with one the banded
+kernels; on CPU tensors (or when asked for ``plain``) the plain versions of
+``ops/interp.py`` and ``ops/interp_band.py``.
 
-``launches`` and ``bwd_launches`` count the launches made by the two
-wrappers, and nothing else, so a run can show that its path went through
-the kernels.
+``launches``, ``bwd_launches``, ``band_launches`` and ``band_bwd_launches``
+count the launches made by the four wrappers, and nothing else, so a run can
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ import torch
 
 from paradis_torch import _build
 from paradis_torch.ops.interp import check_mode, interp_bwd_plain, interp_plain
+from paradis_torch.ops.interp_band import interp_band_bwd_plain, interp_band_plain
 
 launches = 0
 bwd_launches = 0
+band_launches = 0
+band_bwd_launches = 0
 
 _MODES = {"bilinear": 0, "bicubic": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,15 +41,13 @@ def _kernel(name: str):
     """The C entry point of ``csrc/<name>.cu``, built and loaded at first use."""
     if name not in _fns:
         fn = getattr(_build.load(name), f"paradis_{name}")
-        if name == "interp_fwd":
-            # field, pos_y, pos_x, out, B, P, R, C, V, mode, dtype, stream
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        else:
-            # field, pos_y, pos_x, g, d_field, d_py, d_px, B, P, R, C, V, mode,
-            # dtype, g dtype, stream
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        # pointers: field, pos_y, pos_x, out (fwd) or g, d_field, d_py, d_px
+        # (bwd); then B, P; R, C, V; for a banded kernel W, rpb, band_rows,
+        # halo_lo, pad; mode, dtype, and for a backward g's dtype; the stream
+        n_ptr = 4 if name.endswith("fwd") else 7
+        n_int = 5 + (0 if name.endswith("fwd") else 1) + (5 if "band" in name else 0)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * n_int + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -128,20 +132,84 @@ def interp_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
     return d_field.to(field.dtype), d_py, d_px
 
 
+def _check_spec(field: torch.Tensor, pix_y: torch.Tensor, spec) -> tuple[int, ...]:
+    """The band plan's integers ``(W, rpb, band_rows, halo_lo, pad)`` for the
+    banded kernels' C entry points, after checking it fits the shapes."""
+    rpb, band_rows, halo_lo, pad, _ = spec
+    R, H, W = field.shape[1], pix_y.shape[1], pix_y.shape[2]
+    if rpb < 1 or H % rpb or not 0 < band_rows <= R or pad != (R - H) // 2:
+        raise ValueError(f"band plan {spec} does not fit field rows {R} and position rows {H}")
+    return W, rpb, band_rows, halo_lo, pad
+
+
+def interp_band_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                         spec, mode: str = "bicubic") -> torch.Tensor:
+    """Launch the row-banded forward kernel: arguments as ``interp_fwd_cuda``
+    plus the band plan of ``interp_band.band_spec``; positions clamped to it."""
+    global band_launches
+    _check(field, pix_y, pix_x, mode)
+    plan = _check_spec(field, pix_y, spec)
+    B, R, C, V = field.shape
+    H, W = pix_y.shape[1], pix_y.shape[2]
+    out = torch.empty((B, H, W, V), dtype=field.dtype, device=field.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel("interp_band_fwd")
+    with torch.cuda.device(field.device):
+        err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), out.data_ptr(),
+                 B, H * W, R, C, V, *plan, _MODES[mode], _DTYPES[field.dtype],
+                 _stream(field.device))
+    if err != 0:
+        raise RuntimeError(f"interp_band_fwd kernel launch failed with CUDA error {err}")
+    band_launches += 1
+    return out
+
+
+def interp_band_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                         g: torch.Tensor, spec, mode: str = "bicubic"):
+    """Launch the row-banded backward kernel: ``(d_field, d_py, d_px)`` as
+    ``interp_bwd_cuda``, for the band plan ``spec``."""
+    global band_bwd_launches
+    _check(field, pix_y, pix_x, mode, g=g)
+    plan = _check_spec(field, pix_y, spec)
+    B, R, C, V = field.shape
+    H, W = pix_y.shape[1], pix_y.shape[2]
+    d_field = torch.zeros((B, R, C, V), dtype=torch.float32, device=field.device)
+    d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
+    d_px = torch.empty_like(d_py)
+    if d_py.numel() == 0:
+        return d_field.to(field.dtype), d_py, d_px
+    fn = _kernel("interp_band_bwd")
+    with torch.cuda.device(field.device):
+        err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), B, H * W, R, C, V,
+                 *plan, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 _stream(field.device))
+    if err != 0:
+        raise RuntimeError(f"interp_band_bwd kernel launch failed with CUDA error {err}")
+    band_bwd_launches += 1
+    return d_field.to(field.dtype), d_py, d_px
+
+
 class Interp(torch.autograd.Function):
     """Gather-interpolation with the backward of the JAX package's VJP.
 
-    ``Interp.apply(field, pix_y, pix_x, mode, plain)``: with ``plain`` false a
-    CUDA tensor goes to the kernels and a CPU tensor to the plain versions;
-    with ``plain`` true the plain versions run on any device.  The backward
-    is not differentiable again (the kernel has no backward of its own).
+    ``Interp.apply(field, pix_y, pix_x, mode, plain, spec)``: with ``plain``
+    false a CUDA tensor goes to the kernels and a CPU tensor to the plain
+    versions; with ``plain`` true the plain versions run on any device.  A
+    band plan ``spec`` (``interp_band.band_spec``, positions clamped to it)
+    selects the row-banded pair, None the unbanded one.  The backward is not
+    differentiable again (the kernels have no backward of their own).
     """
 
     @staticmethod
-    def forward(ctx, field, pix_y, pix_x, mode: str, plain: bool):
+    def forward(ctx, field, pix_y, pix_x, mode: str, plain: bool, spec=None):
         use_plain = plain or field.device.type == "cpu"
-        ctx.mode, ctx.plain = mode, use_plain
+        ctx.mode, ctx.plain, ctx.spec = mode, use_plain, spec
         ctx.save_for_backward(field, pix_y, pix_x)
+        if spec is not None:
+            fwd = interp_band_plain if use_plain else interp_band_fwd_cuda
+            return fwd(field, pix_y, pix_x, spec, mode)
         if use_plain:
             return interp_plain(field, pix_y, pix_x, mode)
         return interp_fwd_cuda(field, pix_y, pix_x, mode)
@@ -151,6 +219,10 @@ class Interp(torch.autograd.Function):
     def backward(ctx, g):
         field, pix_y, pix_x = ctx.saved_tensors
         g = g.contiguous()
-        bwd = interp_bwd_plain if ctx.plain else interp_bwd_cuda
-        d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.mode)
-        return d_field, d_py, d_px, None, None
+        if ctx.spec is not None:
+            bwd = interp_band_bwd_plain if ctx.plain else interp_band_bwd_cuda
+            d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.spec, ctx.mode)
+        else:
+            bwd = interp_bwd_plain if ctx.plain else interp_bwd_cuda
+            d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.mode)
+        return d_field, d_py, d_px, None, None, None

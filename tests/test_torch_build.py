@@ -16,7 +16,10 @@ def test_every_source_is_found_and_named_by_its_content(tmp_path, monkeypatch):
     assert first.parent == tmp_path / "_build" and first.name.startswith("libk-")
     assert _build._lib_path("k") == first
     (tmp_path / "k.cu").write_text("// two\n")
-    assert _build._lib_path("k") != first  # an edited source builds anew
+    second = _build._lib_path("k")
+    assert second != first  # an edited source builds anew
+    (tmp_path / "taps.cuh").write_text("// shared\n")
+    assert _build._lib_path("k") != second  # and so does an edited shared header
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -96,3 +96,77 @@ def test_backward_kernel_matches_plain_on_card(mode, dtype, integer):
     for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
         ok, err = _within(o, r, *tol)
         assert ok, (name, err)
+
+
+def _band_inputs(mode, dtype, seed, H=32, W=15, V=77, bound=1.5):
+    """An odd tail shape where the band gate is on (H 32, W 15, V 77,
+    bound 1.5 px: bands of 8 rows over 16 padded rows): rows up to 3 px from
+    the arrival row, two rows pushed 20 px beyond the bound, then clamped to
+    it as ``interpolate`` clamps; columns up to 3 px outside the field."""
+    from paradis_torch.ops.interp_band import band_spec
+
+    pad = 2 if mode == "bicubic" else 1
+    R, C = H + 2 * pad, W + 2 * pad
+    rng = np.random.default_rng(seed)
+    field = rng.normal(size=(1, R, C, V)).astype(np.float32)
+    arr = (np.arange(H, dtype=np.float32) + pad)[None, :, None, None]
+    py = arr + rng.uniform(-3.0, 3.0, size=(1, H, W, V)).astype(np.float32)
+    py[0, 3] += 20.0
+    py[0, 20] -= 20.0
+    py = np.clip(py, arr - bound, arr + bound).astype(np.float32)
+    px = rng.uniform(-3.0, C + 2.0, size=(1, H, W, V)).astype(np.float32)
+    g = rng.normal(size=(1, H, W, V)).astype(np.float32)
+    spec = band_spec(H, W, R, mode, bound)
+    assert spec is not None
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy(field).cuda().to(tdt)
+    return (f, torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda(),
+            torch.from_numpy(g).cuda().to(tdt), spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
+    """The row-banded forward and backward kernels against their plain
+    versions and against the unbanded kernels on the same clamped positions
+    (limits as above: the same fp32 sums in another order, d_field in the
+    atomics' order, one bf16 ulp for a bf16 result), and the autograd pairing
+    with a band plan launches each banded kernel once and no unbanded one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops.interp_band import interp_band_bwd_plain, interp_band_plain
+
+    f, y, x, g, spec = _band_inputs(mode, dtype, seed=7)
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    before = interp_cuda.band_launches
+    out = interp_cuda.interp_band_fwd_cuda(f, y, x, spec, mode)
+    torch.cuda.synchronize()
+    assert interp_cuda.band_launches == before + 1 and out.dtype == f.dtype
+    for ref in (interp_band_plain(f, y, x, spec, mode), interp_cuda.interp_fwd_cuda(f, y, x, mode)):
+        ok, err = _within(out, ref, 1e-5, rel)
+        assert ok, err
+
+    before = interp_cuda.band_bwd_launches
+    grads = interp_cuda.interp_band_bwd_cuda(f, y, x, g, spec, mode)
+    torch.cuda.synchronize()
+    assert interp_cuda.band_bwd_launches == before + 1
+    assert grads[0].dtype == f.dtype and grads[1].dtype == grads[2].dtype == torch.float32
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    for ref in (interp_band_bwd_plain(f, y, x, g, spec, mode),
+                interp_cuda.interp_bwd_cuda(f, y, x, g, mode)):
+        for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
+            ok, err = _within(o, r, *tol)
+            assert ok, (name, err)
+
+    leaves = [t.clone().requires_grad_() for t in (f, y, x)]
+    counts = lambda: (interp_cuda.launches, interp_cuda.bwd_launches,  # noqa: E731
+                      interp_cuda.band_launches, interp_cuda.band_bwd_launches)
+    n0 = counts()
+    res = interp_cuda.Interp.apply(*leaves, mode, False, spec)
+    auto = torch.autograd.grad(res, leaves, g)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1)
+    for name, o, r, tol in zip(("d_field", "d_py", "d_px"), auto, grads, tols):
+        ok, err = _within(o, r, *tol)
+        assert ok, (name, err)

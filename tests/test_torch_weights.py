@@ -112,12 +112,13 @@ def test_same_seed_same_weights():
     ("compute.advection_impl=pallas", "advection_impl"),
     ("compute.advection_impl=xla", "advection_impl"),
     ("compute.advection_impl=plain", "advection_impl"),
-    ("compute.interp_band_rad=0.3", "interp_band_rad"),
-    ("compute.gradient_checkpointing=true", "gradient_checkpointing"),
+    ("compute.gradient_checkpointing=true compute.remat_policy=advect", "remat_policy"),
+    ("compute.gradient_checkpointing=true compute.remat_policy=advect_pos", "remat_policy"),
+    ("compute.gradient_checkpointing=true compute.remat_policy=offload", "remat_policy"),
 ])
 def test_from_config_raises_on_settings_it_cannot_honour(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
-        _small(override)
+        _small(*override.split())
 
 
 def test_entry_points_raise_without_a_card_and_without_a_device(monkeypatch):

@@ -50,8 +50,10 @@ class Pair:
     output_dim: int
 
 
-def build_pair(*overrides: str, dtype=jnp.float32, seed: int = 0) -> Pair:
-    """The JAX model, its parameters, and the port with those weights bridged."""
+def build_pair(*overrides: str, dtype=jnp.float32, seed: int = 0, nlat: int = NLAT,
+               nlon: int = NLON) -> Pair:
+    """The JAX model, its parameters, and the port with those weights bridged,
+    on the ``nlat`` × ``nlon`` grid without poles."""
     jcfg = jax_load_config(overrides=TINY + ["compute.advection_impl=xla", *overrides])
     tcfg = torch_load_config(overrides=TINY + list(overrides))
     feats = tcfg.features
@@ -61,12 +63,12 @@ def build_pair(*overrides: str, dtype=jnp.float32, seed: int = 0) -> Pair:
     n_forcings, n_const = len(feats.input.forcings), len(feats.input.constants)
     n_time = int(tcfg.dataset.n_time_inputs)
     input_dim = (n_common + n_forcings) * n_time + n_const
-    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+    lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
 
     jm = JaxParadis.from_config(jcfg, input_dim=input_dim, output_dim=n_out,
                                 lat_deg=lat, lon_deg=lon, dtype=dtype)
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed),
-                              jnp.zeros((1, NLAT, NLON, input_dim), jnp.float32))
+                              jnp.zeros((1, nlat, nlon, input_dim), jnp.float32))
     tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
     model = Paradis.from_config(tcfg, input_dim=input_dim, output_dim=n_out,
                                 lat_deg=lat, lon_deg=lon, dtype=tdtype, device="cpu")
