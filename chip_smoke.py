@@ -53,7 +53,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    1.40625° with ``compute.interp_band_rad=0.3`` and
    ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
    step launches the banded forward 16 times (8, and 8 in the backward's
-   replay), the banded backward 8 times and the unbanded kernels never.
+   replay), the banded backward 8 times and the unbanded kernels never;
+8. the row-chunked pair (``[kernel-chunk]``) at the 5.625° shapes with
+   ``rw = 8``, at the 1.40625° shapes with ``rw = 32`` and at an odd tail
+   shape whose last chunk has 5 rows, float32 and bfloat16, on random
+   positions and on departure-like ones (clamped to the bound
+   ``compute.interp_band_rad=0.3`` gives on the grid): forward and backward
+   held against the plain versions and against the unbanded kernels (the
+   forward bitwise, and d_py, d_px bitwise), timed on the departure-like
+   positions beside the unbanded and banded kernels, the plain version,
+   ``F.grid_sample`` and the bound; and the weight-generation pair
+   (``[kernel-gen]``) against its plain versions at the microbenchmark's
+   shapes and a tail shape, timed beside its bound;
+9. the same serving and training paths with ``PARADIS_INTERP_CHUNK`` set
+   for the phase: a 40-step float32 rollout and bfloat16 train steps at
+   5.625° (``rw = 8``) and at 1.40625° (``rw = 32``, no band, the train
+   steps with gradient checkpointing), each launching the chunked kernels
+   exactly as the unbanded ones above and no other interpolation kernel;
+10. the port's interpolation microbenchmark (``[bench-interp]``,
+    ``python3 -m paradis_torch.tools.bench_interp``), all seven variants.
 
 The last lines are the card line, one JSON object with a record per kernel,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -62,7 +80,9 @@ the repository beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -81,6 +101,15 @@ BAND_SOURCE = "paradis_torch/csrc/interp_band_fwd.cu"
 BAND_REPLACES = "paradis_tpu/ops/interp_pallas.py:501"
 BAND_BWD_SOURCE = "paradis_torch/csrc/interp_band_bwd.cu"
 BAND_BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:512"
+CHUNK_SOURCE = "paradis_torch/csrc/interp_chunk_fwd.cu"
+CHUNK_REPLACES = "paradis_tpu/ops/interp_pallas.py:237"
+CHUNK_BWD_SOURCE = "paradis_torch/csrc/interp_chunk_bwd.cu"
+CHUNK_BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:254"
+GEN_SOURCE = "paradis_torch/csrc/interp_gen.cu"
+GEN_REPLACES = "scripts/bench_interp.py:107"
+BWD_GEN_REPLACES = "scripts/bench_interp.py:221"
+CHUNK_RW = 8               # PARADIS_INTERP_CHUNK of the 5.625° chunked runs
+HR_CHUNK_RW = 32           # and of the 1.40625° ones
 TRAIN_STEPS = 10           # train steps on one batch (the first is the warm-up)
 TRAIN_PROFILE_STEPS = 2    # train steps traced by torch.profiler
 # WSD with a short warmup, so the few steps run at the configured rate
@@ -92,6 +121,11 @@ HR_OVERRIDES = [f"compute.interp_band_rad={BAND_RAD}"]
 # recomputation of each physics layer in the backward
 HR_TRAIN_OVERRIDES = TRAIN_OVERRIDES + HR_OVERRIDES + ["compute.gradient_checkpointing=true"]
 HR_TRAIN_STEPS = 6         # train steps at 1.40625° (the first is the warm-up)
+# the chunked 1.40625° runs: no band (chunking yields to a band plan), and
+# the train steps with full recomputation of each physics layer
+HR_CHUNK_OVERRIDES = ["compute.interp_band_rad=0"]
+HR_CHUNK_TRAIN_OVERRIDES = (TRAIN_OVERRIDES + HR_CHUNK_OVERRIDES
+                            + ["compute.gradient_checkpointing=true"])
 # |kernel - plain| limits, elementwise, abs + rel·|plain|: float32 sums the
 # same products in another FMA order (under the cancellation of the bicubic
 # lobes, ~5e-6 for fields of unit spread); a bfloat16 result is that float32
@@ -136,6 +170,12 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
 # gradient sums 16× the positions.  The limit is about 5× this batch's gap;
 # bf16 as above (measured 0.006).
 HR_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2.0 ** -4}
+# weight-generation kernel vs plain version, elementwise |diff|: both add the
+# same ≤ 4 tap weights (and derivatives) per axis in the same order, but the
+# cubic polynomials round differently (FMA on the card) in intermediates of
+# magnitude up to 6 (8a, −4a), an ulp of 4.8e-7 each; measured 2.1e-6 (K)
+# and 2.6e-6 (K and K′) on sums of magnitude ≤ 2.5.
+GEN_TOL = 5e-6
 
 
 def log(msg: str) -> None:
@@ -235,32 +275,45 @@ def grid_sample_args(field, py, px, dtype):
 
 
 def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
-                 band_px: float | None = None) -> dict:
+                 band_px: float | None = None, chunk_rw: int = 0,
+                 depart_px: float | None = None) -> dict:
     """The forward kernel against its plain version; with ``band_px``, the
     row-banded kernel on positions clamped to it, held against the banded
-    plain version and against the unbanded kernel on the same positions.
-    With ``timed``, the kernel's time beside the plain version's,
-    ``F.grid_sample``'s (and the unbanded kernel's) and the bound."""
+    plain version and against the unbanded kernel on the same positions;
+    with ``chunk_rw``, the row-chunked kernel (on positions clamped to
+    ``depart_px`` when given), held against its plain version and, bitwise,
+    against the unbanded kernel.  With ``timed``, the kernel's time beside
+    the plain version's, ``F.grid_sample``'s, the unbanded kernel's (and,
+    for a chunked case where the band gate passes at ``depart_px``, the
+    banded kernel's) and the bound."""
     import torch
     import torch.nn.functional as F
 
     from paradis_torch.ops.interp import interp_plain
     from paradis_torch.ops.interp_band import interp_band_plain
-    from paradis_torch.ops.interp_cuda import interp_band_fwd_cuda, interp_fwd_cuda
+    from paradis_torch.ops.interp_chunk import interp_chunk_plain
+    from paradis_torch.ops.interp_cuda import (interp_band_fwd_cuda, interp_chunk_fwd_cuda,
+                                               interp_fwd_cuda)
 
     dtype = getattr(torch, dtype_name)
     B, R, C, V, H, W = shape
     field, py, px = interp_inputs(B, R, C, V, H, W, dtype, seed=len(mode) + V)
-    if band_px is None:
-        kernel = lambda: interp_fwd_cuda(field, py, px, mode)  # noqa: E731
-        plain = lambda: interp_plain(field, py, px, mode)  # noqa: E731
-    else:
+    spec = None
+    if band_px is not None:
         py, spec = band_inputs(field, py, band_px, mode)
         kernel = lambda: interp_band_fwd_cuda(field, py, px, spec, mode)  # noqa: E731
         plain = lambda: interp_band_plain(field, py, px, spec, mode)  # noqa: E731
+    elif chunk_rw:
+        if depart_px is not None:
+            py, spec = band_inputs(field, py, depart_px, mode)
+        kernel = lambda: interp_chunk_fwd_cuda(field, py, px, chunk_rw, mode)  # noqa: E731
+        plain = lambda: interp_chunk_plain(field, py, px, chunk_rw, mode)  # noqa: E731
+    else:
+        kernel = lambda: interp_fwd_cuda(field, py, px, mode)  # noqa: E731
+        plain = lambda: interp_plain(field, py, px, mode)  # noqa: E731
     out = kernel()
     refs = {"plain": plain()}
-    if band_px is not None:
+    if band_px is not None or chunk_rw:
         refs["unbanded"] = interp_fwd_cuda(field, py, px, mode)
     torch.cuda.synchronize()
     atol, rtol = KERNEL_TOL[dtype_name]
@@ -268,6 +321,10 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
            "ok": out.dtype == dtype and bool(torch.isfinite(out).all())}
     if band_px is not None:
         res.update(band_px=band_px, band_plan=list(spec))
+    if chunk_rw:
+        res.update(chunk_rw=chunk_rw, depart_px=depart_px,
+                   bitwise_equal_unbanded=bool(torch.equal(out, refs["unbanded"])))
+        res["ok"] = res["ok"] and res["bitwise_equal_unbanded"]
     for name, ref in refs.items():
         diff = (out.float() - ref.float()).abs()
         limit = atol + rtol * ref.float().abs()
@@ -278,9 +335,12 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     if timed:
         k_iters, p_iters = _iters(py, 200, 20)
         res["ms"] = time_ms(kernel, iters=k_iters)
-        if band_px is not None:
+        if band_px is not None or chunk_rw:
             res["unbanded_ms"] = time_ms(lambda: interp_fwd_cuda(field, py, px, mode),
                                          iters=k_iters)
+        if chunk_rw and spec is not None:
+            res["banded_ms"] = time_ms(lambda: interp_band_fwd_cuda(field, py, px, spec, mode),
+                                       iters=k_iters)
         res["plain_ms"] = time_ms(plain, iters=p_iters, warmup=1 if p_iters <= 3 else 5)
         img, grid = grid_sample_args(field, py, px, dtype)
 
@@ -316,18 +376,25 @@ def bound_bwd(field, py, g, mode: str):
 
 
 def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
-                     integer: bool = False, band_px: float | None = None) -> dict:
+                     integer: bool = False, band_px: float | None = None,
+                     chunk_rw: int = 0, depart_px: float | None = None) -> dict:
     """The backward kernel against the plain backward; with ``band_px``, the
     row-banded backward on positions clamped to it, held against the banded
-    plain backward and against the unbanded kernel on the same positions.
-    With ``timed``, its time beside the plain backward's, ``F.grid_sample``'s
-    backward (and the unbanded kernel's) and the bound."""
+    plain backward and against the unbanded kernel on the same positions;
+    with ``chunk_rw``, the row-chunked backward (on positions clamped to
+    ``depart_px`` when given), held against its plain version and the
+    unbanded kernel (d_py and d_px bitwise).  With ``timed``, its time beside
+    the plain backward's, ``F.grid_sample``'s backward, the unbanded
+    kernel's (and the banded kernel's where the band gate passes at
+    ``depart_px``) and the bound."""
     import torch
     import torch.nn.functional as F
 
     from paradis_torch.ops.interp import interp_bwd_plain
     from paradis_torch.ops.interp_band import interp_band_bwd_plain
-    from paradis_torch.ops.interp_cuda import interp_band_bwd_cuda, interp_bwd_cuda
+    from paradis_torch.ops.interp_chunk import interp_chunk_bwd_plain
+    from paradis_torch.ops.interp_cuda import (interp_band_bwd_cuda, interp_bwd_cuda,
+                                               interp_chunk_bwd_cuda)
 
     dtype = getattr(torch, dtype_name)
     B, R, C, V, H, W = shape
@@ -336,22 +403,32 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
         py, px = py.round(), px.round()
     gen = torch.Generator(device="cuda").manual_seed(V)
     g = torch.randn(py.shape, generator=gen, device="cuda").to(dtype)
-    if band_px is None:
-        kernel = lambda: interp_bwd_cuda(field, py, px, g, mode)  # noqa: E731
-        plain = lambda: interp_bwd_plain(field, py, px, g, mode)  # noqa: E731
-    else:
+    spec = None
+    if band_px is not None:
         py, spec = band_inputs(field, py, band_px, mode)
         kernel = lambda: interp_band_bwd_cuda(field, py, px, g, spec, mode)  # noqa: E731
         plain = lambda: interp_band_bwd_plain(field, py, px, g, spec, mode)  # noqa: E731
+    elif chunk_rw:
+        if depart_px is not None:
+            py, spec = band_inputs(field, py, depart_px, mode)
+        kernel = lambda: interp_chunk_bwd_cuda(field, py, px, g, chunk_rw, mode)  # noqa: E731
+        plain = lambda: interp_chunk_bwd_plain(field, py, px, g, chunk_rw, mode)  # noqa: E731
+    else:
+        kernel = lambda: interp_bwd_cuda(field, py, px, g, mode)  # noqa: E731
+        plain = lambda: interp_bwd_plain(field, py, px, g, mode)  # noqa: E731
     out = kernel()
     refs = {"plain": plain()}
-    if band_px is not None:
+    if band_px is not None or chunk_rw:
         refs["unbanded"] = interp_bwd_cuda(field, py, px, g, mode)
     torch.cuda.synchronize()
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
            "integer_positions": integer, "ok": out[0].dtype == dtype}
     if band_px is not None:
         res.update(band_px=band_px, band_plan=list(spec))
+    if chunk_rw:
+        res.update(chunk_rw=chunk_rw, depart_px=depart_px, bitwise_equal_unbanded_d_pos=bool(
+            torch.equal(out[1], refs["unbanded"][1]) and torch.equal(out[2], refs["unbanded"][2])))
+        res["ok"] = res["ok"] and res["bitwise_equal_unbanded_d_pos"]
     for ref_name, ref in refs.items():
         key = "" if ref_name == "plain" else f"{ref_name}_"
         res[f"{key}max_abs_err"] = res[f"{key}worst_err_over_limit"] = 0.0
@@ -370,9 +447,12 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
     if timed:
         k_iters, p_iters = _iters(py, 100, 10)
         res["ms"] = time_ms(kernel, iters=k_iters)
-        if band_px is not None:
+        if band_px is not None or chunk_rw:
             res["unbanded_ms"] = time_ms(lambda: interp_bwd_cuda(field, py, px, g, mode),
                                          iters=k_iters)
+        if chunk_rw and spec is not None:
+            res["banded_ms"] = time_ms(
+                lambda: interp_band_bwd_cuda(field, py, px, g, spec, mode), iters=k_iters)
         res["plain_ms"] = time_ms(plain, iters=p_iters, warmup=1 if p_iters <= 3 else 5)
         img, grid = grid_sample_args(field, py, px, dtype)
         img.requires_grad_()
@@ -383,6 +463,54 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
             lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True),
             iters=max(k_iters // 2, 10))
         res["bound_ms"], res["bound_by"] = bound_bwd(field, py, g, mode)
+    return res
+
+
+def gen_inputs(shape, seed: int):
+    """Positions [B, H, W, V] over the padded grid R = H + 4, C = W + 4 and
+    up to 3 px beyond it, with a NaN and an inf among them."""
+    import torch
+
+    B, H, W, V = shape
+    R, C = H + 4, W + 4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    py = torch.rand(B, H, W, V, generator=g, device="cuda") * (R + 5) - 3
+    px = torch.rand(B, H, W, V, generator=g, device="cuda") * (C + 5) - 3
+    py.view(-1)[0] = float("nan")
+    px.view(-1)[1] = float("inf")
+    return py, px, R, C
+
+
+def check_gen(derivative: bool, shape, timed: bool) -> dict:
+    """The weight-generation kernel (``derivative``: with K′) against its
+    plain version; with ``timed``, its time beside the plain version's and
+    the bound: 8 bytes read and 4 written per element, against the flops of
+    the tap weights (and derivatives) of both axes over the fp32 rate."""
+    import torch
+
+    from paradis_torch.ops.interp_gen import bwd_gen_cuda, bwd_gen_plain, gen_cuda, gen_plain
+
+    py, px, R, C = gen_inputs(shape, seed=sum(shape) + derivative)
+    kernel_fn, plain_fn = (bwd_gen_cuda, bwd_gen_plain) if derivative else (gen_cuda, gen_plain)
+    out = kernel_fn(py, px, R, C, "bicubic")
+    ref = plain_fn(py, px, R, C, "bicubic")
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    res = {"derivative": derivative, "shape": list(shape), "R": R, "C": C,
+           "max_abs_err": float(diff.max()), "limit": GEN_TOL,
+           "ok": bool(torch.isfinite(out).all()) and bool((diff <= GEN_TOL).all())}
+    if timed:
+        res["ms"] = time_ms(lambda: kernel_fn(py, px, R, C, "bicubic"), iters=200)
+        res["plain_ms"] = time_ms(lambda: plain_fn(py, px, R, C, "bicubic"), iters=20)
+        res["library_ms"] = None  # no one PyTorch call computes it
+        n = py.numel()
+        # per axis 4 cubic weights (~6 flops each) and 4 compares and adds;
+        # with the derivatives 4 more polynomials (~8 flops) and adds
+        flops = n * (2 * (24 + 8 + (36 if derivative else 0)) + (3 if derivative else 1))
+        bytes_ms = 3 * n * 4 / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+        res["bound_ms"], res["bound_by"] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                                            else (ops_ms, "operations"))
     return res
 
 
@@ -442,24 +570,63 @@ def band_on(model, nlat: int, nlon: int) -> bool:
 
 
 def launch_counts() -> list[int]:
-    """The four kernel wrappers' launch counts: forward, backward, banded
-    forward, banded backward."""
+    """The six interpolation kernel wrappers' launch counts: forward,
+    backward, banded forward, banded backward, chunked forward, chunked
+    backward."""
     from paradis_torch.ops import interp_cuda as ic
 
-    return [ic.launches, ic.bwd_launches, ic.band_launches, ic.band_bwd_launches]
+    return [ic.launches, ic.bwd_launches, ic.band_launches, ic.band_bwd_launches,
+            ic.chunk_launches, ic.chunk_bwd_launches]
 
 
 def reset_counts() -> None:
     from paradis_torch.ops import interp_cuda as ic
 
     ic.launches = ic.bwd_launches = ic.band_launches = ic.band_bwd_launches = 0
+    ic.chunk_launches = ic.chunk_bwd_launches = 0
 
 
-def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) -> dict:
+def expected_launches(fwd: int, bwd: int, banded: bool, chunk_rw: int) -> list[int]:
+    """The six counts of a run whose path takes ``fwd`` forward and ``bwd``
+    backward interpolations: all through the banded pair, the chunked pair
+    or the unbanded pair."""
+    slot = 2 if banded else 4 if chunk_rw else 0
+    counts = [0] * 6
+    counts[slot], counts[slot + 1] = fwd, bwd
+    return counts
+
+
+@contextlib.contextmanager
+def interp_chunk_env(chunk_rw: int):
+    """``PARADIS_INTERP_CHUNK`` set to ``chunk_rw`` (0: unchunked) for the
+    block, and restored after."""
+    old = os.environ.get("PARADIS_INTERP_CHUNK")
+    os.environ["PARADIS_INTERP_CHUNK"] = str(chunk_rw)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PARADIS_INTERP_CHUNK", None)
+        else:
+            os.environ["PARADIS_INTERP_CHUNK"] = old
+
+
+def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=(),
+                 chunk_rw: int = 0, ab_pairs: int = 0) -> dict:
     """40-step full-width rollout on ``grid``; launch counts, finiteness,
     kernel-vs-plain.  With ``compute.interp_band_rad`` among ``overrides`` and
     the band gate on, every interpolation must go through the banded
-    kernel."""
+    kernel; else, with ``chunk_rw`` (``PARADIS_INTERP_CHUNK`` for the run),
+    through the chunked kernel.  ``ab_pairs`` more pairs of rollouts then run
+    with chunking off and on in turns (off, on, on, off, ...) on the same
+    model: where the host bounds the rate and drifts over a call, only turns
+    compare the two paths."""
+    with interp_chunk_env(chunk_rw):
+        return _run_forecast(dtype_name, card, grid, overrides, chunk_rw, ab_pairs)
+
+
+def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
+                  ab_pairs: int) -> dict:
     import numpy as np
     import torch
 
@@ -501,9 +668,19 @@ def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) ->
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts.append(launch_counts())
-    # the forward kernel, or the banded one, once per layer and step
-    expected = [0, 0, n_layers * STEPS, 0] if banded else [n_layers * STEPS, 0, 0, 0]
+    # the path's forward kernel once per layer and step
+    expected = expected_launches(n_layers * STEPS, 0, banded, chunk_rw)
     median = sorted(times)[1]
+    ab_times, ab_ok = {"off": [], "on": []}, True
+    for turn in (["off", "on", "on", "off"] * ab_pairs)[:2 * ab_pairs]:
+        rw = chunk_rw if turn == "on" else 0
+        with interp_chunk_env(rw):
+            reset_counts()
+            t0 = time.perf_counter()
+            rollout(batch, d["n_common"])
+            torch.cuda.synchronize()
+            ab_times[turn].append(time.perf_counter() - t0)
+            ab_ok = ab_ok and launch_counts() == expected_launches(n_layers * STEPS, 0, banded, rw)
     short = dict(batch, forcings=batch["forcings"][:, :PROFILE_STEPS])
     profile = profile_steps(lambda: rollout(short, d["n_common"]), PROFILE_STEPS,
                             median / STEPS)
@@ -521,7 +698,7 @@ def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) ->
     step_scale = float(plain.abs().max())
     res = {
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": list(overrides),
-        "band_px": model.band_max_dy_pix, "banded": banded,
+        "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
         "params": n_params, "layers": n_layers,
         "out_shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
         "out_std": float(out.std()), "launches_per_rollout": counts,
@@ -532,8 +709,12 @@ def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) ->
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": profile,
     }
-    res["ok"] = (res["finite"] and all(c == expected for c in counts)
-                 and plain_launches == [0, 0, 0, 0]
+    if ab_pairs:
+        res["ab_rollout_s"] = ab_times
+        res["ab_forecast_steps_per_s"] = {k: STEPS / float(np.median(v))
+                                          for k, v in ab_times.items()}
+    res["ok"] = (res["finite"] and all(c == expected for c in counts) and ab_ok
+                 and plain_launches == [0] * 6
                  and res["out_shape"] == [1, STEPS, nlat, nlon, d["n_out"]]
                  and step_err <= res["first_step_limit"] and res["out_std"] > 0)
     del model
@@ -542,11 +723,18 @@ def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=()) ->
 
 
 def run_train(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=TRAIN_OVERRIDES,
-              steps: int = TRAIN_STEPS, grad_tol=GRAD_TOL) -> dict:
+              steps: int = TRAIN_STEPS, grad_tol=GRAD_TOL, chunk_rw: int = 0) -> dict:
     """Full-width train steps on ``grid``: finiteness, loss decrease, launch
     counts and the first step's gradients through the kernels against the
     plain path.  Under ``compute.gradient_checkpointing`` the backward
-    replays each layer's forward, so the forward kernel runs twice a layer."""
+    replays each layer's forward, so the forward kernel runs twice a layer.
+    ``chunk_rw`` sets ``PARADIS_INTERP_CHUNK`` for the run."""
+    with interp_chunk_env(chunk_rw):
+        return _run_train(dtype_name, card, grid, overrides, steps, grad_tol, chunk_rw)
+
+
+def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol,
+               chunk_rw: int) -> dict:
     import numpy as np
     import torch
 
@@ -631,13 +819,13 @@ def run_train(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=TRAIN_OVE
     opt_s = float(np.median(opt_times))
     opt_profile = profile_steps(optimizer.step, 1, opt_s)
 
-    # forward and backward kernel (or their banded pair) once per layer and
-    # forecast step; the forward twice under checkpointing (the replay)
+    # the path's forward and backward kernel once per layer and forecast
+    # step; the forward twice under checkpointing (the replay)
     fwd = n_layers * S * (2 if model.gradient_checkpointing else 1)
-    expected = [0, 0, fwd, n_layers * S] if banded else [fwd, n_layers * S, 0, 0]
+    expected = expected_launches(fwd, n_layers * S, banded, chunk_rw)
     res = {
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": overrides,
-        "band_px": model.band_max_dy_pix, "banded": banded,
+        "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
         "gradient_checkpointing": model.gradient_checkpointing,
         "model_dtype": str(model.dtype),
         "optimizer": optimizer.name, "ns_dtype": str(optimizer.ns_dtype), "S": S,
@@ -656,7 +844,7 @@ def run_train(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=TRAIN_OVE
     res["ok"] = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
                  and losses[-1] < losses[0]
                  and all(c == expected for c in counts)
-                 and grad_launches == {"plain": [0, 0, 0, 0], "auto": expected}
+                 and grad_launches == {"plain": [0] * 6, "auto": expected}
                  and model.dtype == getattr(torch, dtype_name)
                  and grad_err <= grad_tol[dtype_name])
     del model, optimizer, state, train_step
@@ -750,6 +938,46 @@ def main() -> int:
         raise SystemExit(f"banded kernel disagrees with its plain version or the unbanded "
                          f"kernel: {bad}")
 
+    # the row-chunked pair at the shapes of the two chunked paths, on random
+    # positions and on departure-like ones (clamped to the bound
+    # compute.interp_band_rad=0.3 gives on each grid), timed on the latter;
+    # and an odd tail shape whose last chunk has 5 of its 8 rows
+    lr_px = band_bound_pixels(BAND_RAD, equiangular_lat_lon(NLAT, NLON, include_poles=False)[0])
+    chunk_checks, chunk_bwd_checks = [], []
+    for dtype_name in ("float32", "bfloat16"):
+        for mode, shape, rw, depart in (("bicubic", flag, CHUNK_RW, lr_px),
+                                        ("bilinear", flag_bl, CHUNK_RW, lr_px),
+                                        ("bicubic", hr, HR_CHUNK_RW, hr_px),
+                                        ("bilinear", hr_bl, HR_CHUNK_RW, hr_px),
+                                        ("bicubic", tail, CHUNK_RW, 1.5),
+                                        ("bilinear", tail, CHUNK_RW, 1.5)):
+            for depart_px in (None, depart):
+                timed = depart_px is not None and shape != tail
+                chunk_checks.append(check_kernel(mode, dtype_name, shape, timed, chunk_rw=rw,
+                                                 depart_px=depart_px))
+                chunk_bwd_checks.append(check_bwd_kernel(mode, dtype_name, shape, timed,
+                                                         chunk_rw=rw, depart_px=depart_px))
+    for c in chunk_checks:
+        log("[kernel-chunk] " + json.dumps(c))
+    for c in chunk_bwd_checks:
+        log("[kernel-chunk-bwd] " + json.dumps(c))
+    bad = [c for c in chunk_checks + chunk_bwd_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"chunked kernel disagrees with its plain version or the unbanded "
+                         f"kernel: {bad}")
+
+    # the weight-generation pair at the microbenchmark's shapes and a tail
+    from paradis_torch.tools import bench_interp
+
+    gen_checks = [check_gen(derivative, shape, timed=shape == bench_interp.SHAPE)
+                  for derivative in (False, True)
+                  for shape in (bench_interp.SHAPE, (1, 9, 15, 77))]
+    for c in gen_checks:
+        log("[kernel-gen] " + json.dumps(c))
+    bad = [c for c in gen_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"weight-generation kernel disagrees with its plain version: {bad}")
+
     runs, hr_runs = {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
         for dtype_name in ("float32", "bfloat16"):
@@ -777,29 +1005,104 @@ def main() -> int:
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
 
+    # the serving and training paths through the row-chunked kernels
+    chunk_runs, chunk_trains = {}, {}
+    for grid, overrides, rw, ab_pairs in (((NLAT, NLON), (), CHUNK_RW, 3),
+                                          (HR, HR_CHUNK_OVERRIDES, HR_CHUNK_RW, 0)):
+        res = run_forecast("float32", card, grid, overrides, chunk_rw=rw, ab_pairs=ab_pairs)
+        log("[forecast-chunk] " + json.dumps(res))
+        if not res["ok"]:
+            raise SystemExit(f"chunked forecast rollout failed its checks: {res}")
+        chunk_runs[grid] = res
+        log(f"[forecast-chunk] {grid[0]}x{grid[1]} float32 rw {rw}: "
+            f"{res['forecast_steps_per_s']:.2f} steps/s ({STEPS}-step rollout, batch 1; in "
+            f"turns {res.get('ab_forecast_steps_per_s')}) on {card}")
+    for grid, overrides, steps, tol, rw in (
+            ((NLAT, NLON), TRAIN_OVERRIDES, TRAIN_STEPS, GRAD_TOL, CHUNK_RW),
+            (HR, HR_CHUNK_TRAIN_OVERRIDES, HR_TRAIN_STEPS, HR_GRAD_TOL, HR_CHUNK_RW)):
+        res = run_train("bfloat16", card, grid, overrides, steps, tol, chunk_rw=rw)
+        log("[train-chunk] " + json.dumps(res))
+        if not res["ok"]:
+            raise SystemExit(f"chunked train steps failed their checks: {res}")
+        chunk_trains[grid] = res
+        log(f"[train-chunk] {grid[0]}x{grid[1]} bfloat16 rw {rw}: "
+            f"{res['train_steps_per_s']:.2f} train steps/s (batch 1, checkpointing "
+            f"{res['gradient_checkpointing']}) on {card}")
+
+    # the microbenchmark, the weight-generation kernels' main path
+    from paradis_torch.ops import interp_gen
+
+    interp_gen.gen_launches = interp_gen.bwd_gen_launches = 0
+    bench = bench_interp.main([])
+    gen_launches = {"interp_gen": interp_gen.gen_launches,
+                    "interp_bwd_gen": interp_gen.bwd_gen_launches}
+    log("[bench-interp] " + json.dumps(dict(bench, gen_launches=gen_launches)))
+    per_op = bench["launches_per_op"]
+    bench_ok = (list(bench["ms_per_op"]) == list(bench_interp.VARIANTS)
+                and all(ms > 0 for ms in bench["ms_per_op"].values())
+                and per_op["cuda_fwd"] == {"interp_fwd": 1}
+                and per_op["cuda_fwdbwd"] == {"interp_fwd": 1, "interp_bwd": 1}
+                and per_op["chunked_fwd"] == {"interp_chunk_fwd": 1}
+                and per_op["chunked_fwdbwd"] == {"interp_chunk_fwd": 1, "interp_chunk_bwd": 1}
+                and per_op["genonly"] == {"interp_gen": 1}
+                and per_op["bwd_genonly"] == {"interp_bwd_gen": 1}
+                and per_op["ns_update"] == {} and all(gen_launches.values()))
+    if not bench_ok:
+        raise SystemExit(f"the interpolation microbenchmark failed its checks: {bench}")
+
     # one record per kernel variant on the main paths (bicubic), its launches
     # counted in the run of the path that takes it: the forward kernels in
-    # the first rollout, the backward kernels in the first train step
+    # the first rollout (or, for a chunked bf16 record, the first chunked
+    # train step), the backward kernels in the first train step, the
+    # weight-generation kernels in the microbenchmark
+    hr_chunk = HR[0] + 4
     kernels = []
+
+    def chunk_grid(c):
+        return HR if c["shape"][1] == hr_chunk else (NLAT, NLON)
+
     for name, source, replaces, found, launches in (
             ("interp_fwd", KERNEL_SOURCE, REPLACES, checks,
-             lambda dt: runs[dt]["launches_per_rollout"][0][0]),
+             lambda c: runs[c["dtype"]]["launches_per_rollout"][0][0]),
             ("interp_bwd", BWD_SOURCE, BWD_REPLACES, bwd_checks,
-             lambda dt: trains[dt]["launches_per_step"][0][1]),
+             lambda c: trains[c["dtype"]]["launches_per_step"][0][1]),
             ("interp_band_fwd", BAND_SOURCE, BAND_REPLACES, band_checks,
-             lambda dt: hr_runs[dt]["launches_per_rollout"][0][2]),
+             lambda c: hr_runs[c["dtype"]]["launches_per_rollout"][0][2]),
             ("interp_band_bwd", BAND_BWD_SOURCE, BAND_BWD_REPLACES, band_bwd_checks,
-             lambda dt: hr_trains[dt]["launches_per_step"][0][3])):
+             lambda c: hr_trains[c["dtype"]]["launches_per_step"][0][3]),
+            ("interp_chunk_fwd", CHUNK_SOURCE, CHUNK_REPLACES, chunk_checks,
+             lambda c: (chunk_runs[chunk_grid(c)]["launches_per_rollout"][0][4]
+                        if c["dtype"] == "float32"
+                        else chunk_trains[chunk_grid(c)]["launches_per_step"][0][4])),
+            ("interp_chunk_bwd", CHUNK_BWD_SOURCE, CHUNK_BWD_REPLACES,
+             [c for c in chunk_bwd_checks if c["dtype"] == "bfloat16"],
+             lambda c: chunk_trains[chunk_grid(c)]["launches_per_step"][0][5])):
         for c in found:
             if c["mode"] == "bicubic" and "ms" in c:
-                rec = {"name": f"{name}[bicubic,{c['dtype']}]", "route": "cuda",
-                       "source": source, "replaces": replaces, "launches": launches(c["dtype"]),
+                tag = f",rw{c['chunk_rw']},{c['shape'][4]}x{c['shape'][5]}" if "chunk_rw" in c else ""
+                rec = {"name": f"{name}[bicubic,{c['dtype']}{tag}]", "route": "cuda",
+                       "source": source, "replaces": replaces, "launches": launches(c),
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                        "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
-                if "unbanded_ms" in c:
-                    rec["unbanded_ms"] = c["unbanded_ms"]
+                for extra in ("unbanded_ms", "banded_ms"):
+                    if extra in c:
+                        rec[extra] = c[extra]
                 kernels.append(rec)
+    for c in gen_checks:
+        if "ms" in c:
+            name = "interp_bwd_gen" if c["derivative"] else "interp_gen"
+            kernels.append({"name": f"{name}[bicubic,float32]", "route": "cuda",
+                            "source": GEN_SOURCE,
+                            "replaces": BWD_GEN_REPLACES if c["derivative"] else GEN_REPLACES,
+                            "launches": gen_launches[name], "max_abs_err": c["max_abs_err"],
+                            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    missing = {"interp_fwd", "interp_bwd", "interp_band_fwd", "interp_band_bwd",
+               "interp_chunk_fwd", "interp_chunk_bwd", "interp_gen", "interp_bwd_gen"} - {
+                   k["name"].split("[")[0] for k in kernels if k["launches"] > 0}
+    if missing:
+        raise SystemExit(f"kernels not launched on their main path: {sorted(missing)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

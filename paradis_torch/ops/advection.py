@@ -18,6 +18,7 @@ from torch import nn
 from paradis_torch.ops.blocks import GMBlock
 from paradis_torch.ops.interp import check_mode
 from paradis_torch.ops.interp_band import band_spec
+from paradis_torch.ops.interp_chunk import chunk_rows as resolve_chunk_rows
 from paradis_torch.ops.interp_cuda import Interp
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
@@ -55,7 +56,7 @@ def departure_pixel_coords(u, v, dt: float, lat_grid: torch.Tensor, lon_grid: to
 
 
 def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
-                max_dy_pix: float | None = None):
+                max_dy_pix: float | None = None, chunk_rows: int | None = None):
     """Backend dispatch for the gather-interpolation, forward and backward.
 
     Every backend goes through the autograd pairing ``interp_cuda.Interp``.
@@ -68,7 +69,10 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
     departure rows are clamped to ±``max_dy_pix`` of their arrival row (once,
     here; d_py is zero where the clamp binds).  Where the band plan
     (``interp_band.band_spec``) then finds banding worth it, the pairing runs
-    the row-banded kernels (or their plain versions), else the unbanded ones.
+    the row-banded kernels (or their plain versions).  Without a band plan,
+    a chunk size (``chunk_rows``, else ``PARADIS_INTERP_CHUNK``, read on every
+    call as the JAX package reads it at each trace; ``interp_chunk.chunk_rows``)
+    selects the row-chunked kernels, and 0 the unbanded ones.
     """
     check_mode(mode)
     if impl not in INTERP_IMPLS:
@@ -81,7 +85,8 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
         arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + pad
         pix_y = torch.clamp(pix_y.float(), arr - max_dy_pix, arr + max_dy_pix)
         spec = band_spec(H, W, R, mode, max_dy_pix)
-    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain", spec)
+    rw = 0 if spec is not None else resolve_chunk_rows(field.shape[1], chunk_rows)
+    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
 
 
 class NeuralSemiLagrangian(nn.Module):

@@ -22,6 +22,7 @@ kernels are held against on the card.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -31,11 +32,16 @@ BAND_RPB = 8  # arrival rows per band
 
 
 def band_spec(H: int, W: int, R: int, mode: str, max_dy_pix: float | None):
-    """The banding plan, or None where there is no bound or banding does not
-    pay (a band of more than half the padded rows).  ``band_rows`` is rounded
-    up to a multiple of 8, as the Pallas plan aligns it, and the gate reads
-    the rounded value."""
+    """The banding plan, or None where there is no bound, where
+    ``PARADIS_INTERP_BAND`` is ``0``, or where banding does not pay (a band of
+    more than half the padded rows; ``PARADIS_INTERP_BAND=1`` passes that
+    gate, not the band's fit in the rows).  The environment is read on every
+    call.  ``band_rows`` is rounded up to a multiple of 8, as the Pallas plan
+    aligns it, and the gate reads the rounded value."""
     if max_dy_pix is None:
+        return None
+    env = os.environ.get("PARADIS_INTERP_BAND")
+    if env == "0":
         return None
     rpb = BAND_RPB
     while rpb > 1 and H % rpb:
@@ -43,7 +49,7 @@ def band_spec(H: int, W: int, R: int, mode: str, max_dy_pix: float | None):
     m = int(math.ceil(float(max_dy_pix)))
     lo, hi = (1, 2) if mode == "bicubic" else (0, 1)
     band_rows = -(-(rpb + 2 * m + lo + hi) // 8) * 8
-    if band_rows * 2 > R or band_rows > R:
+    if (band_rows * 2 > R and env != "1") or band_rows > R:
         return None
     return (rpb, band_rows, m + lo, (R - H) // 2, float(max_dy_pix))
 

@@ -36,3 +36,26 @@ def test_build_is_a_no_op_when_every_library_exists(tmp_path, monkeypatch):
     _build._lib_path("interp_fwd").write_bytes(b"")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)  # nvcc never asked for
     assert _build.build(["interp_fwd"]) == {}
+
+
+def test_the_signature_table_matches_every_c_entry_point():
+    """``interp_cuda._SIGNATURES`` counts, for each ``paradis_<name>`` entry
+    point, the pointers, 64-bit integers and ints before the stream; each is
+    read here from the ``extern "C"`` declaration in its source, and every
+    entry point of ``csrc/`` has a row."""
+    import re
+
+    from paradis_torch.ops.interp_cuda import _SIGNATURES
+
+    decl = re.compile(r'extern "C" int paradis_(\w+)\(([^)]*)\)')
+    found = {}
+    for name in _build.sources():
+        for entry, args in decl.findall((_build.CSRC_DIR / f"{name}.cu").read_text()):
+            types = [" ".join(a.split()[:-1]) for a in args.split(",")]
+            assert types[-1] == "void*", (entry, types)  # the stream
+            kinds = ["ptr" if t.endswith("*") else t for t in types[:-1]]
+            n_ptr, n_long = kinds.count("ptr"), kinds.count("long long")
+            assert kinds == ["ptr"] * n_ptr + ["long long"] * n_long + ["int"] * (
+                len(kinds) - n_ptr - n_long), (entry, types)
+            found[entry] = (name, n_ptr, n_long, len(kinds) - n_ptr - n_long)
+    assert found == _SIGNATURES

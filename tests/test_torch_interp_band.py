@@ -59,6 +59,24 @@ def test_band_plan_matches_jax(H, W, R, mode, max_dy_pix, engaged):
         assert band_starts(spec, R) == _band_starts(spec, R)
 
 
+@pytest.mark.parametrize("env", [None, "0", "1", "2"])
+@pytest.mark.parametrize("H,W,R,mode,max_dy_pix", [
+    (128, 256, 132, "bicubic", 0.3 / LAT_1P4),   # gate on
+    (32, 64, 36, "bicubic", 0.2 / LAT_5P6),      # gate off: band_rows 24 > 36 / 2
+    (32, 64, 36, "bicubic", 1.5 / LAT_5P6),      # band_rows 48 > R: off whatever the env
+    (32, 64, 36, "bicubic", None),
+], ids=["1p4", "toy-off", "too-wide", "no-bound"])
+def test_band_env_knob_matches_jax(monkeypatch, env, H, W, R, mode, max_dy_pix):
+    """PARADIS_INTERP_BAND, read on every call: ``0`` turns banding off, ``1``
+    passes the profitability gate (not the band's fit in the rows), anything
+    else changes nothing."""
+    if env is None:
+        monkeypatch.delenv("PARADIS_INTERP_BAND", raising=False)
+    else:
+        monkeypatch.setenv("PARADIS_INTERP_BAND", env)
+    assert band_spec(H, W, R, mode, max_dy_pix) == _band_spec(H, W, R, mode, max_dy_pix)
+
+
 def test_the_1p4_plan_clips_its_edge_bands():
     """The plan the 1.40625° flagship runs: bound 12.2 px → m 13, 8 rows a
     band, 40 band rows; the first two and the last three bands share clipped

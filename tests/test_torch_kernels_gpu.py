@@ -170,3 +170,130 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     for name, o, r, tol in zip(("d_field", "d_py", "d_px"), auto, grads, tols):
         ok, err = _within(o, r, *tol)
         assert ok, (name, err)
+
+
+def _chunk_inputs(shape, dtype, seed, depart_px=None):
+    """Field, positions and cotangent at ``shape`` (B, R, C, V, H, W): random
+    positions up to 3 px outside the field with a NaN and an inf among them,
+    or, with ``depart_px``, departure-like rows within that many px of the
+    padded arrival row."""
+    B, R, C, V, H, W = shape
+    field, py, px = _inputs(B, R, C, V, H, W, seed)
+    if depart_px is not None:
+        rng = np.random.default_rng(seed + 1)
+        arr = (np.arange(H, dtype=np.float32) + (R - H) // 2)[None, :, None, None]
+        py = (arr + rng.uniform(-depart_px, depart_px, size=py.shape)).astype(np.float32)
+    py.reshape(-1)[5] = np.nan
+    py.reshape(-1)[7] = np.inf
+    px.reshape(-1)[9] = -np.inf
+    g = np.random.default_rng(seed + 2).normal(size=py.shape).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(field).cuda().to(tdt), torch.from_numpy(py).cuda(),
+            torch.from_numpy(px).cuda(), torch.from_numpy(g).cuda().to(tdt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random-rw8", "departure-rw8", "tail-rw8", "tail-rw32",
+                                  "departure-rw16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
+    """The row-chunked forward and backward kernels against their plain
+    versions (limits as above) and against the unbanded kernels: the forward
+    and d_py, d_px bitwise (the same float order per position), d_field in
+    the atomics' order.  The tail shapes have a 5-row last chunk (rw 8) or a
+    single chunk shorter than rw (rw 32).  The autograd pairing with a chunk
+    size launches each chunked kernel once and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops.interp_chunk import interp_chunk_bwd_plain, interp_chunk_plain
+
+    kind, rw = case.split("-rw")
+    rw = int(rw)
+    shape = (1, 13, 22, 77, 9, 15) if kind == "tail" else (1, 36, 68, 77, 32, 64)
+    f, y, x, g = _chunk_inputs(shape, dtype, seed=11 + rw,
+                               depart_px=3.0 if kind == "departure" else None)
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    before = interp_cuda.chunk_launches
+    out = interp_cuda.interp_chunk_fwd_cuda(f, y, x, rw, mode)
+    torch.cuda.synchronize()
+    assert interp_cuda.chunk_launches == before + 1 and out.dtype == f.dtype
+    ok, err = _within(out, interp_chunk_plain(f, y, x, rw, mode), 1e-5, rel)
+    assert ok, err
+    assert torch.equal(out, interp_cuda.interp_fwd_cuda(f, y, x, mode))
+
+    before = interp_cuda.chunk_bwd_launches
+    grads = interp_cuda.interp_chunk_bwd_cuda(f, y, x, g, rw, mode)
+    torch.cuda.synchronize()
+    assert interp_cuda.chunk_bwd_launches == before + 1
+    assert grads[0].dtype == f.dtype and grads[1].dtype == grads[2].dtype == torch.float32
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    for ref in (interp_chunk_bwd_plain(f, y, x, g, rw, mode),
+                interp_cuda.interp_bwd_cuda(f, y, x, g, mode)):
+        for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
+            ok, err = _within(o, r, *tol)
+            assert ok, (name, err)
+    unbanded = interp_cuda.interp_bwd_cuda(f, y, x, g, mode)
+    assert torch.equal(grads[1], unbanded[1]) and torch.equal(grads[2], unbanded[2])
+
+    leaves = [t.clone().requires_grad_() for t in (f, y, x)]
+    counts = lambda: (interp_cuda.launches, interp_cuda.bwd_launches,  # noqa: E731
+                      interp_cuda.band_launches, interp_cuda.band_bwd_launches,
+                      interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
+    n0 = counts()
+    res = interp_cuda.Interp.apply(*leaves, mode, False, None, rw)
+    auto = torch.autograd.grad(res, leaves, g)
+    torch.cuda.synchronize()
+    assert counts() == (*n0[:4], n0[4] + 1, n0[5] + 1)
+    for name, o, r, tol in zip(("d_field", "d_py", "d_px"), auto, grads, tols):
+        ok, err = _within(o, r, *tol)
+        assert ok, (name, err)
+
+
+@pytest.mark.gpu
+def test_chunk_kernels_refuse_a_chunk_that_does_not_fit():
+    """A chunk of one channel larger than the card's shared memory raises
+    (and counts no launch); it does not run the unchunked kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = torch.zeros(1, 64, 4096, 1, device="cuda")
+    y = torch.full((1, 2, 2, 1), 3.5, device="cuda")
+    n0 = (interp_cuda.launches, interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
+    with pytest.raises(RuntimeError, match="interp_chunk_fwd"):
+        interp_cuda.interp_chunk_fwd_cuda(f, y, y, 64, "bicubic")
+    with pytest.raises(RuntimeError, match="interp_chunk_bwd"):
+        interp_cuda.interp_chunk_bwd_cuda(f, y, y, y, 64, "bicubic")
+    assert (interp_cuda.launches, interp_cuda.chunk_launches,
+            interp_cuda.chunk_bwd_launches) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 9, 15, 77), (1, 32, 64, 768)], ids=["tail", "bench"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_gen_kernels_match_plain_on_card(mode, shape):
+    """The weight-generation kernels against their plain versions on
+    positions over and beyond the padded grid, with a NaN and an inf
+    (within chip_smoke.py's ``GEN_TOL``, 5e-6: the same ≤ 4 terms per axis,
+    the cubic polynomials rounded with FMA on the card in intermediates up to
+    6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops import interp_gen
+
+    B, H, W, V = shape
+    R, C = H + 4, W + 4
+    rng = np.random.default_rng(21)
+    py = rng.uniform(-3.0, R + 2.0, size=shape).astype(np.float32)
+    px = rng.uniform(-3.0, C + 2.0, size=shape).astype(np.float32)
+    py.reshape(-1)[0], px.reshape(-1)[1] = np.nan, np.inf
+    y, x = torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda()
+    for kernel, plain, counter in ((interp_gen.gen_cuda, interp_gen.gen_plain, "gen_launches"),
+                                   (interp_gen.bwd_gen_cuda, interp_gen.bwd_gen_plain,
+                                    "bwd_gen_launches")):
+        before = getattr(interp_gen, counter)
+        out = kernel(y, x, R, C, mode)
+        torch.cuda.synchronize()
+        assert getattr(interp_gen, counter) == before + 1
+        ref = plain(y, x, R, C, mode)
+        assert torch.isfinite(out).all()
+        assert float((out - ref).abs().max()) <= 5e-6

@@ -162,6 +162,17 @@ batch["target"] = torch.randn(1, 1, 8, 16, 12, generator=g)
 metrics = make_train_step(model, loss_fn, cfg, optimizer)(state, batch, 4)
 assert torch.isfinite(metrics["loss"]) and metrics["applied"] and state.step == 1
 assert not torch.equal(before, model.input_proj.layer0_CLinear.conv.weight)
+
+import os
+os.environ["PARADIS_INTERP_CHUNK"] = "8"
+from paradis_torch.ops import interp_chunk, interp_cuda, interp_gen
+from paradis_torch.tools import bench_interp
+out = make_forecast_rollout(model, cfg)(batch, 4)
+assert torch.isfinite(out).all() and interp_cuda.chunk_launches == 0
+assert interp_chunk.chunk_rows(10, None) == 8
+y = torch.rand(1, 8, 16, 4) * 12
+assert torch.isfinite(interp_gen.bwd_gen(y, y, 12, 20)).all()
+assert "ns_update" in bench_interp.VARIANTS
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
 assert not bad, bad
@@ -171,8 +182,9 @@ print("isolated")
 
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, builds a toy model on the CPU,
-    runs a rollout and takes one NorMuon train step, and has loaded nothing
-    of JAX, flax or paradis_tpu."""
+    runs a rollout and takes one NorMuon train step, runs a rollout through
+    the row-chunked path and the weight generation, imports the
+    microbenchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -186,6 +198,8 @@ _IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|paradis_tpu)\b"
 def test_no_jax_import_in_the_port_or_the_smoke_script():
     files = sorted((ROOT / "paradis_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].is_file()
+    for new in ("ops/interp_chunk.py", "ops/interp_gen.py", "tools/bench_interp.py"):
+        assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
     assert not offenders, offenders
