@@ -70,8 +70,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    5.625° (``rw = 8``) and at 1.40625° (``rw = 32``, no band, the train
    steps with gradient checkpointing), each launching the chunked kernels
    exactly as the unbanded ones above and no other interpolation kernel;
-10. the port's interpolation microbenchmark (``[bench-interp]``,
-    ``python3 -m paradis_torch.tools.bench_interp``), all seven variants.
+10. the contraction kernels of the microbenchmark (``[kernel-mm]``):
+    ``mm`` (float32 and bfloat16 operands, each variant's channel and
+    position blocks), ``mmT`` and ``bwd_mm`` against their plain versions at
+    the microbenchmark's shapes (B·V 768, P 2048, R 36, C 68) and at a tail
+    shape (V 77, P 1000, R 13, C 22), timed beside the same work through
+    ``torch.matmul`` and the bound;
+11. the dense interpolation path (``[forecast-dense]``): a 40-step float32
+    rollout at 5.625° with ``compute.advection_impl=xla``, which launches no
+    interpolation kernel, its first step against the plain path;
+12. the port's interpolation microbenchmark (``[bench-interp]``,
+    ``python3 -m paradis_torch.tools.bench_interp``), all fifteen variants.
 
 The last lines are the card line, one JSON object with a record per kernel,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -93,6 +102,7 @@ PROFILE_STEPS = 3          # rollout steps traced by torch.profiler
 NLAT, NLON = 32, 64        # 5.625°
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bfloat16 on the tensor cores
 KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
 BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
@@ -108,6 +118,10 @@ CHUNK_BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:254"
 GEN_SOURCE = "paradis_torch/csrc/interp_gen.cu"
 GEN_REPLACES = "scripts/bench_interp.py:107"
 BWD_GEN_REPLACES = "scripts/bench_interp.py:221"
+MM_SOURCE = "paradis_torch/csrc/interp_mm.cu"
+MM_REPLACES = "scripts/bench_interp.py:138"
+MMT_REPLACES = "scripts/bench_interp.py:176"
+BWD_MM_REPLACES = "scripts/bench_interp.py:248"
 CHUNK_RW = 8               # PARADIS_INTERP_CHUNK of the 5.625° chunked runs
 HR_CHUNK_RW = 32           # and of the 1.40625° ones
 TRAIN_STEPS = 10           # train steps on one batch (the first is the warm-up)
@@ -176,6 +190,13 @@ HR_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2.0 ** -4}
 # magnitude up to 6 (8a, −4a), an ulp of 4.8e-7 each; measured 2.1e-6 (K)
 # and 2.6e-6 (K and K′) on sums of magnitude ≤ 2.5.
 GEN_TOL = 5e-6
+# contraction kernels vs plain versions, max |diff| / max |plain| of each
+# output: the same float32 products of identically rounded operands, summed
+# in other orders (a kernel over (column, row) pairs, torch's matmul per row
+# and then over rows).  For unit-spread operands mm's 2,448 terms give
+# outputs up to ~270 with order errors of ~1e-4: measured ≤ 8.8e-7 (mm) and
+# 8.9e-7 (bwd_mm's d_field) at the microbenchmark's shapes on an H100.
+MM_TOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -514,6 +535,128 @@ def check_gen(derivative: bool, shape, timed: bool) -> dict:
     return res
 
 
+def mm_bound(nbytes: int, flops: int, cdt) -> tuple[float, str]:
+    """(bound_ms, bound_by): bytes over the memory rate against flops over
+    the rate of the operand type (bf16 on the tensor cores, else float32)."""
+    import torch
+
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / (PEAK_BF16_FLOPS if cdt == torch.bfloat16 else PEAK_FP32_FLOPS) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_mm(variant: str, shape, timed: bool) -> dict:
+    """The contraction kernel of a ``bench_interp.MM_VARIANTS`` variant
+    (``mm`` on wx [B,V,P,C], ``mmT`` on wxT [B,V,C,P]) against its plain
+    version on normal operands; with ``timed``, its time beside the plain
+    version's, ``torch.matmul`` doing the same work (the [P, R] products,
+    then the sum over r) and the bound: wx, f read once and out written once,
+    against 2·B·V·P·R·C flops at the operands' rate.  ``einsum_ms`` is a note:
+    ``einsum('bvpc,bvrc->bvp')`` sums f over r first, 36× less work."""
+    import torch
+
+    from paradis_torch.ops import interp_mm
+    from paradis_torch.tools.bench_interp import MM_VARIANTS
+
+    cdt, vb, pb = MM_VARIANTS[variant]
+    transposed = variant.startswith("mmT")
+    B, V, P, R, C = shape
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + vb)
+    w = torch.randn((B, V, C, P) if transposed else (B, V, P, C), generator=gen, device="cuda")
+    f = torch.randn(B, V, R, C, generator=gen, device="cuda")
+    if transposed:
+        kernel = lambda: interp_mm.mmT_cuda(w, f, cdt, vb, pb)  # noqa: E731
+        plain = lambda: interp_mm.mmT_plain(w, f, cdt)  # noqa: E731
+        lib = lambda: torch.matmul(f.to(cdt), w.to(cdt)).float().sum(-2)  # noqa: E731
+        einsum = lambda: torch.einsum("bvcp,bvrc->bvp", w.to(cdt), f.to(cdt))  # noqa: E731
+    else:
+        kernel = lambda: interp_mm.mm_cuda(w, f, cdt, vb, pb)  # noqa: E731
+        plain = lambda: interp_mm.mm_plain(w, f, cdt)  # noqa: E731
+        lib = lambda: torch.matmul(w.to(cdt), f.to(cdt).transpose(-1, -2)).float().sum(-1)  # noqa: E731
+        einsum = lambda: torch.einsum("bvpc,bvrc->bvp", w.to(cdt), f.to(cdt))  # noqa: E731
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    res = {"variant": variant, "kernel": "interp_mmT" if transposed else "interp_mm",
+           "cdt": str(cdt).removeprefix("torch."), "vb": vb, "pb": pb, "shape": list(shape),
+           "max_abs_err": err, "max_abs_plain": scale, "rel_err": err / scale,
+           "limit": MM_TOL, "ok": bool(torch.isfinite(out).all()) and err <= MM_TOL * scale}
+    if timed:
+        res["ms"] = time_ms(kernel, iters=50)
+        res["plain_ms"] = time_ms(plain, iters=10, warmup=2)
+        res["library_ms"] = time_ms(lib, iters=20, warmup=2)
+        res["einsum_ms"] = time_ms(einsum, iters=20, warmup=2)
+        res["bound_ms"], res["bound_by"] = mm_bound(
+            (w.numel() + f.numel() + out.numel()) * 4, 2 * B * V * P * R * C, cdt)
+    return res
+
+
+def check_bwd_mm(field_dtype: str, cdt_name: str, shape, timed: bool) -> dict:
+    """The dense-backward contraction kernel against its plain version on a
+    normal field, positions inside the padded grid and a cotangent in
+    [-1, 1]; twice to the same bits (no atomics); d_px against d_py, equal up
+    to float order with the stand-in weights.  With ``timed``, its time beside
+    the plain version's, the same work through ``torch.bmm`` with bf16
+    operands and float32 output (``out_dtype``), and the bound: field, py, px,
+    g read once and d_field, d_py, d_px written once, against the 2·B·V·R·C·2P
+    flops of ``tt`` and the 2·B·V·R·C·P of d_field at the operands' rate."""
+    import torch
+
+    from paradis_torch.ops import interp_mm
+
+    B, V, P, R, C = shape
+    cdt = getattr(torch, cdt_name)
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    field = torch.randn(B, V, R, C, generator=gen, device="cuda").to(getattr(torch, field_dtype))
+    py = torch.rand(B, V, P, generator=gen, device="cuda") * (R - 5) + 2
+    px = torch.rand(B, V, P, generator=gen, device="cuda") * (C - 5) + 2
+    g = torch.rand(B, V, P, generator=gen, device="cuda") * 2 - 1
+    kernel = lambda: interp_mm.bwd_mm_cuda(field, py, px, g, cdt)  # noqa: E731
+    plain = lambda: interp_mm.bwd_mm_plain(field, py, px, g, cdt)  # noqa: E731
+    outs, again, refs = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    res = {"field_dtype": field_dtype, "cdt": cdt_name, "shape": list(shape), "limit": MM_TOL,
+           "deterministic": all(torch.equal(a, b) for a, b in zip(outs, again)),
+           "d_px_vs_d_py_rel": float((outs[2] - outs[1]).abs().max() / outs[1].abs().max())}
+    res["ok"] = res["deterministic"] and res["d_px_vs_d_py_rel"] <= MM_TOL
+    res["max_abs_err"] = 0.0
+    for name, o, r in zip(("d_field", "d_py", "d_px"), outs, refs):
+        err, scale = float((o - r).abs().max()), float(r.abs().max())
+        res[f"{name}_max_abs_err"], res[f"{name}_rel_err"] = err, err / scale
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ok"] = res["ok"] and bool(torch.isfinite(o).all()) and err <= MM_TOL * scale
+    if timed:
+        res["ms"] = time_ms(kernel, iters=50)
+        res["plain_ms"] = time_ms(plain, iters=10, warmup=2)
+        rows = torch.arange(R, dtype=torch.float32, device="cuda")
+        cols = torch.arange(C, dtype=torch.float32, device="cuda")
+
+        def lib():
+            wy = py[..., None, :] * rows[:, None]
+            wxa = px[..., None, :] * cols[:, None]
+            wx2 = torch.cat([wxa, wxa * 0.5], dim=-1).to(cdt).reshape(B * V, C, 2 * P)
+            tt = torch.bmm(field.to(cdt).reshape(B * V, R, C), wx2,
+                           out_dtype=torch.float32).reshape(B, V, R, 2 * P)
+            d_py = g * (wy * 0.5 * tt[..., :P]).sum(-2)
+            d_px = g * (wy * tt[..., P:]).sum(-2)
+            wyg = (wy * g[..., None, :]).to(cdt).reshape(B * V, R, P)
+            d_field = torch.bmm(wyg, wx2[..., :P].transpose(-1, -2), out_dtype=torch.float32)
+            return d_field, d_py, d_px
+
+        lib_out = lib()
+        res["library_rel_err_vs_plain"] = max(
+            float((a.reshape(r.shape) - r).abs().max() / r.abs().max())
+            for a, r in zip(lib_out, refs))
+        res["library_ms"] = time_ms(lib, iters=20, warmup=2)
+        n_pos = B * V * P
+        nbytes = field.numel() * field.element_size() + 3 * n_pos * 4 + B * V * R * C * 4 \
+            + 2 * n_pos * 4
+        res["bound_ms"], res["bound_by"] = mm_bound(nbytes, 2 * B * V * R * C * 3 * P, cdt)
+    return res
+
+
 def flagship_dims(cfg) -> dict:
     f = cfg.features
     n_levels = len(f.pressure_levels)
@@ -647,6 +790,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     n_layers = len(model.layers)
     n_params = sum(p.numel() for p in model.parameters())
     banded = band_on(model, nlat, nlon)
+    impl = model.layers[0].advection.impl   # "xla": the dense path, no kernel
     rng = np.random.default_rng(0)
     batch = {
         "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
@@ -669,7 +813,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
         times.append(time.perf_counter() - t0)
         counts.append(launch_counts())
     # the path's forward kernel once per layer and step
-    expected = expected_launches(n_layers * STEPS, 0, banded, chunk_rw)
+    expected = expected_launches(n_layers * STEPS if impl == "auto" else 0, 0, banded, chunk_rw)
     median = sorted(times)[1]
     ab_times, ab_ok = {"off": [], "on": []}, True
     for turn in (["off", "on", "on", "off"] * ab_pairs)[:2 * ab_pairs]:
@@ -692,13 +836,13 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
         reset_counts()
         plain = model(model_in).float()
         plain_launches = launch_counts()
-        model.set_interp_impl("auto")
+        model.set_interp_impl(impl)
     torch.cuda.synchronize()
     step_err = float((out[:, 0] - plain).abs().max())
     step_scale = float(plain.abs().max())
     res = {
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": list(overrides),
-        "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
+        "impl": impl, "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
         "params": n_params, "layers": n_layers,
         "out_shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
         "out_std": float(out.std()), "launches_per_rollout": counts,
@@ -978,6 +1122,22 @@ def main() -> int:
     if bad:
         raise SystemExit(f"weight-generation kernel disagrees with its plain version: {bad}")
 
+    # the contraction kernels at the microbenchmark's shapes and a tail shape
+    # (V no multiple of a channel block, P none of a position tile)
+    B_, H_, W_, V_ = bench_interp.SHAPE
+    bench_mm = (B_, V_, H_ * W_, H_ + 2 * bench_interp.PAD, W_ + 2 * bench_interp.PAD)
+    mm_tail = (1, 77, 1000, 13, 22)
+    mm_checks = [check_mm(variant, shape, timed=shape == bench_mm)
+                 for variant in bench_interp.MM_VARIANTS for shape in (bench_mm, mm_tail)]
+    mm_checks += [check_bwd_mm("bfloat16", "bfloat16", bench_mm, timed=True),
+                  check_bwd_mm("bfloat16", "bfloat16", mm_tail, timed=False),
+                  check_bwd_mm("float32", "float32", mm_tail, timed=False)]
+    for c in mm_checks:
+        log("[kernel-mm] " + json.dumps(c))
+    bad = [c for c in mm_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"contraction kernel disagrees with its plain version: {bad}")
+
     runs, hr_runs = {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
         for dtype_name in ("float32", "bfloat16"):
@@ -989,6 +1149,20 @@ def main() -> int:
             log(f"[forecast] {grid[0]}x{grid[1]} {dtype_name}: "
                 f"{res['forecast_steps_per_s']:.2f} steps/s ({STEPS}-step rollout, batch 1, "
                 f"banded {res['banded']}) on {card}")
+
+    # the dense interpolation path: no interpolation kernel at all
+    before = bench_interp.launch_counts()
+    dense = run_forecast("float32", card, (NLAT, NLON), ["compute.advection_impl=xla"])
+    dense["all_kernel_launches"] = {k: n - before[k] for k, n in
+                                    bench_interp.launch_counts().items()}
+    log("[forecast-dense] " + json.dumps(dense))
+    if not (dense["ok"] and dense["impl"] == "xla"
+            and not any(dense["all_kernel_launches"].values())):
+        raise SystemExit(f"dense forecast rollout failed its checks: {dense}")
+    log(f"[forecast-dense] {NLAT}x{NLON} float32: {dense['forecast_steps_per_s']:.2f} steps/s "
+        f"({STEPS}-step rollout, batch 1), device "
+        f"{dense['profile']['device_ms_per_step']} ms/step, peak {dense['peak_mem_gb']:.2f} GB "
+        f"on {card}")
 
     trains, hr_trains = {}, {}
     for grid, overrides, steps, tol, store in (
@@ -1029,24 +1203,31 @@ def main() -> int:
             f"{res['train_steps_per_s']:.2f} train steps/s (batch 1, checkpointing "
             f"{res['gradient_checkpointing']}) on {card}")
 
-    # the microbenchmark, the weight-generation kernels' main path
-    from paradis_torch.ops import interp_gen
+    # the microbenchmark, the main path of the weight-generation and the
+    # contraction kernels
+    from paradis_torch.ops import interp_gen, interp_mm
 
     interp_gen.gen_launches = interp_gen.bwd_gen_launches = 0
+    interp_mm.mm_launches = interp_mm.mmT_launches = interp_mm.bwd_mm_launches = 0
     bench = bench_interp.main([])
-    gen_launches = {"interp_gen": interp_gen.gen_launches,
-                    "interp_bwd_gen": interp_gen.bwd_gen_launches}
-    log("[bench-interp] " + json.dumps(dict(bench, gen_launches=gen_launches)))
+    bench_launches = {k: n for k, n in bench_interp.launch_counts().items()
+                      if k in ("interp_gen", "interp_bwd_gen", "interp_mm", "interp_mmT",
+                               "interp_bwd_mm")}
+    log("[bench-interp] " + json.dumps(dict(bench, bench_launches=bench_launches)))
     per_op = bench["launches_per_op"]
     bench_ok = (list(bench["ms_per_op"]) == list(bench_interp.VARIANTS)
                 and all(ms > 0 for ms in bench["ms_per_op"].values())
+                and per_op["xla_fwd"] == {} and per_op["xla_fwdbwd"] == {}
                 and per_op["cuda_fwd"] == {"interp_fwd": 1}
                 and per_op["cuda_fwdbwd"] == {"interp_fwd": 1, "interp_bwd": 1}
                 and per_op["chunked_fwd"] == {"interp_chunk_fwd": 1}
                 and per_op["chunked_fwdbwd"] == {"interp_chunk_fwd": 1, "interp_chunk_bwd": 1}
                 and per_op["genonly"] == {"interp_gen": 1}
+                and all(per_op[name] == {"interp_mmT" if name.startswith("mmT") else "interp_mm": 1}
+                        for name in bench_interp.MM_VARIANTS)
                 and per_op["bwd_genonly"] == {"interp_bwd_gen": 1}
-                and per_op["ns_update"] == {} and all(gen_launches.values()))
+                and per_op["bwd_mmonly"] == {"interp_bwd_mm": 1}
+                and per_op["ns_update"] == {} and all(bench_launches.values()))
     if not bench_ok:
         raise SystemExit(f"the interpolation microbenchmark failed its checks: {bench}")
 
@@ -1054,7 +1235,8 @@ def main() -> int:
     # counted in the run of the path that takes it: the forward kernels in
     # the first rollout (or, for a chunked bf16 record, the first chunked
     # train step), the backward kernels in the first train step, the
-    # weight-generation kernels in the microbenchmark
+    # weight-generation and contraction kernels in the microbenchmark (the
+    # run of their variant)
     hr_chunk = HR[0] + 4
     kernels = []
 
@@ -1095,11 +1277,29 @@ def main() -> int:
             kernels.append({"name": f"{name}[bicubic,float32]", "route": "cuda",
                             "source": GEN_SOURCE,
                             "replaces": BWD_GEN_REPLACES if c["derivative"] else GEN_REPLACES,
-                            "launches": gen_launches[name], "max_abs_err": c["max_abs_err"],
+                            "launches": bench_launches[name], "max_abs_err": c["max_abs_err"],
                             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    in_run = bench["launches_per_run"]
+    for c in mm_checks:
+        if "ms" not in c:
+            continue
+        if "variant" in c:
+            name, replaces = c["kernel"], MMT_REPLACES if c["kernel"] == "interp_mmT" else MM_REPLACES
+            rec = {"name": f"{name}[{c['cdt']},vb{c['vb']},pb{c['pb']}]",
+                   "launches": in_run[c["variant"]].get(name, 0), "einsum_ms": c["einsum_ms"]}
+        else:
+            rec = {"name": f"interp_bwd_mm[{c['cdt']}]",
+                   "launches": in_run["bwd_mmonly"].get("interp_bwd_mm", 0)}
+            replaces = BWD_MM_REPLACES
+        rec.update({"route": "cuda", "source": MM_SOURCE, "replaces": replaces,
+                    "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                    "library_ms": c["library_ms"]})
+        kernels.append(rec)
     missing = {"interp_fwd", "interp_bwd", "interp_band_fwd", "interp_band_bwd",
-               "interp_chunk_fwd", "interp_chunk_bwd", "interp_gen", "interp_bwd_gen"} - {
+               "interp_chunk_fwd", "interp_chunk_bwd", "interp_gen", "interp_bwd_gen",
+               "interp_mm", "interp_mmT", "interp_bwd_mm"} - {
                    k["name"].split("[")[0] for k in kernels if k["launches"] > 0}
     if missing:
         raise SystemExit(f"kernels not launched on their main path: {sorted(missing)}")

@@ -195,20 +195,23 @@ class Paradis(nn.Module):
         """Build from a Config (the schema of ``configs/default.yaml``).
 
         ``dtype`` defaults to bfloat16 under ``compute.use_amp`` and float32
-        otherwise; ``seed`` to ``init.seed``.  Raises on a setting the port
-        cannot honour yet.
+        otherwise; ``seed`` to ``init.seed``.  ``compute.advection_impl`` is
+        ``auto`` (the kernels on a card, the plain versions on the CPU) or
+        ``xla`` (the dense contraction of ``ops/interp_dense.py`` in every
+        layer).  Raises on a setting the port cannot honour yet.
         """
         pb = cfg.model.physblock
         compute = cfg.compute
         impl = compute.get("advection_impl", "auto")
-        if impl != "auto":
-            raise ValueError(f"compute.advection_impl={impl!r}: paradis_torch takes only "
-                             f"'auto' (the kernel on a card, the plain version on the CPU)")
+        if impl not in ("auto", "xla"):
+            raise ValueError(f"compute.advection_impl={impl!r}: paradis_torch takes 'auto' "
+                             f"(the kernel on a card, the plain version on the CPU) or 'xla' "
+                             f"(the dense contraction)")
         if dtype is None:
             dtype = torch.bfloat16 if compute.use_amp else torch.float32
         if seed is None:
             seed = int(cfg.get_path("init.seed", 0) or 0)
-        return cls(
+        model = cls(
             input_dim=input_dim,
             output_dim=output_dim,
             n_static=len(cfg.features.input.constants),
@@ -245,13 +248,15 @@ class Paradis(nn.Module):
             seed=seed,
             device=device,
         )
+        model.set_interp_impl(impl)
+        return model
 
     @property
     def device(self) -> torch.device:
         return self.lat_grid.device
 
     def set_interp_impl(self, impl: str) -> None:
-        """Route every layer's interpolation through ``impl`` (auto | plain)."""
+        """Route every layer's interpolation through ``impl`` (auto | plain | xla)."""
         if impl not in INTERP_IMPLS:
             raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
         for layer in self.layers:

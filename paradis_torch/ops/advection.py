@@ -20,10 +20,11 @@ from paradis_torch.ops.interp import check_mode
 from paradis_torch.ops.interp_band import band_spec
 from paradis_torch.ops.interp_chunk import chunk_rows as resolve_chunk_rows
 from paradis_torch.ops.interp_cuda import Interp
+from paradis_torch.ops.interp_dense import InterpDense
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
 
-INTERP_IMPLS = ("auto", "plain")
+INTERP_IMPLS = ("auto", "plain", "xla")
 
 
 def enforce_pole_continuity(x: torch.Tensor) -> torch.Tensor:
@@ -59,11 +60,14 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
                 max_dy_pix: float | None = None, chunk_rows: int | None = None):
     """Backend dispatch for the gather-interpolation, forward and backward.
 
-    Every backend goes through the autograd pairing ``interp_cuda.Interp``.
-    ``auto`` sends a tensor on the CPU to the plain versions and any other
-    tensor to the hand-written kernels, which launch or raise: there is no
-    fallback.  ``plain`` forces the plain forward and the plain backward on
-    any device (the reference the kernels are held against).
+    ``auto`` and ``plain`` go through the autograd pairing
+    ``interp_cuda.Interp``.  ``auto`` sends a tensor on the CPU to the plain
+    versions and any other tensor to the hand-written kernels, which launch
+    or raise: there is no fallback.  ``plain`` forces the plain forward and the plain backward on
+    any device (the reference the kernels are held against).  ``xla`` is the
+    JAX package's dense path (``compute.advection_impl: xla``): the dense
+    contraction of ``interp_dense.InterpDense`` on any device, which, as
+    there, takes no band plan and no chunk size.
 
     ``max_dy_pix`` is part of the op's contract on every backend: when given,
     departure rows are clamped to ±``max_dy_pix`` of their arrival row (once,
@@ -77,23 +81,25 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
     check_mode(mode)
     if impl not in INTERP_IMPLS:
         raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
-    spec = None
+    _, H, W, _ = pix_y.shape
+    R = field.shape[1]
     if max_dy_pix is not None:
-        _, H, W, _ = pix_y.shape
-        R = field.shape[1]
         pad = (R - H) // 2
         arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + pad
         pix_y = torch.clamp(pix_y.float(), arr - max_dy_pix, arr + max_dy_pix)
-        spec = band_spec(H, W, R, mode, max_dy_pix)
-    rw = 0 if spec is not None else resolve_chunk_rows(field.shape[1], chunk_rows)
+    if impl == "xla":
+        return InterpDense.apply(field, pix_y, pix_x, mode)
+    spec = None if max_dy_pix is None else band_spec(H, W, R, mode, max_dy_pix)
+    rw = 0 if spec is not None else resolve_chunk_rows(R, chunk_rows)
     return Interp.apply(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
 
 
 class NeuralSemiLagrangian(nn.Module):
     """Learned semi-Lagrangian transport of the latent state.
 
-    ``impl`` is ``auto``; only ``Paradis.set_interp_impl`` switches it to
-    ``plain``, to hold the kernel path against the plain one on a card.
+    ``impl`` is ``auto``; ``Paradis.set_interp_impl`` switches it to
+    ``xla`` (``compute.advection_impl: xla``, set by ``Paradis.from_config``)
+    or to ``plain``, to hold the kernel path against the plain one on a card.
     ``band_max_dy_pix`` bounds the departure rows in pixels
     (``compute.interp_band_rad``, converted by the model), which licenses the
     row-banded kernels; None leaves the rows free.

@@ -47,7 +47,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # pos_y, pos_x, g, d_field, d_py, d_px; then B, P; then R, C, V, for a banded
 # kernel W, rpb, band_rows, halo_lo, pad, for a chunked one rw; then mode,
 # dtype, and for a backward g's dtype.  The weight-generation kernels take
-# pos_y, pos_x, out; the element count; R, C, mode.
+# pos_y, pos_x, out; the element count; R, C, mode.  The contraction kernels
+# (``ops/interp_mm.py``) take w, f, out, or field, py, px, g, d_field, d_py,
+# d_px; then B·V, P; then R, C, and vb, pb or the field's dtype; then cdt.
 _SIGNATURES = {
     "interp_fwd": ("interp_fwd", 4, 2, 5),
     "interp_bwd": ("interp_bwd", 7, 2, 6),
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "interp_chunk_bwd": ("interp_chunk_bwd", 7, 2, 7),
     "interp_gen": ("interp_gen", 3, 1, 3),
     "interp_bwd_gen": ("interp_gen", 3, 1, 3),
+    "interp_mm": ("interp_mm", 3, 2, 5),
+    "interp_mmT": ("interp_mm", 3, 2, 5),
+    "interp_bwd_mm": ("interp_mm", 7, 2, 4),
 }
 _fns: dict = {}
 

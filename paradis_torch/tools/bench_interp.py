@@ -9,6 +9,8 @@ The port's counterpart of ``scripts/bench_interp.py``, at its shapes and
 inputs: positions [1, 32, 64, 768] on the padded 36 × 68 grid (pad 2),
 bicubic, a bfloat16 field, drawn from ``default_rng(0)`` as there.  Variants:
 
+- ``xla_fwd`` / ``xla_fwdbwd``: the JAX package's dense path
+  (``interpolate(..., impl="xla")``, ``ops/interp_dense.py``, plain torch);
 - ``cuda_fwd`` / ``cuda_fwdbwd``: the interpolation forward, and forward
   plus the gradients of the output's sum with respect to field and
   positions, through ``ops/advection.interpolate`` (the kernels
@@ -18,6 +20,15 @@ bicubic, a bfloat16 field, drawn from ``default_rng(0)`` as there.  Variants:
 - ``genonly`` / ``bwd_genonly``: the tap weights alone, and with their
   derivatives (``csrc/interp_gen.cu``), to split the gather kernels into
   weight arithmetic and memory;
+- ``mm_f32_vb8``, ``mm_bf16_vb8``, ``mm_bf16_vb32``, ``mm_bf16_vb128``,
+  ``mmT_bf16_vb8``: the dense forward's contraction alone
+  (``csrc/interp_mm.cu``), float32 or bfloat16 operands, channel blocks of
+  8 / 32 / 128 planes with position blocks of 1024 / 256 / 128, on wx
+  [B, V, P, C] (``mmT``: wxT [B, V, C, P]) and f [B, V, R, C] normal from
+  ``default_rng(1)``, as there;
+- ``bwd_mmonly``: the dense backward's contractions with stand-in weights
+  (``csrc/interp_mm.cu``) on the bench's field and positions, channel-major,
+  with g = 1;
 - ``ns_update``: one NorMuon update on gradients shaped like the flagship's
   (``configs/default.yaml`` with ``--override``s, on the positions' grid,
   gradients normal with scale 1e-2 from ``default_rng(1)``).
@@ -25,16 +36,16 @@ bicubic, a bfloat16 field, drawn from ``default_rng(0)`` as there.  Variants:
 Each variant is timed with CUDA events over ``--iters`` calls after a
 warm-up, the median of ``--repeats`` such runs, in ms per call.  Prints one
 line per variant, then one JSON line with the times, the kernel launches of
-one call of each variant, the card and the shapes.  It runs on the card
-unless given ``--device cpu``, which runs the plain versions (host clock,
-for the CPU test); without a card and without ``--device cpu`` it raises.
-Not ported yet: the JAX dense path's ``xla_*`` variants and the contraction
-kernels' ``mm_*``, ``mmT_*`` and ``bwd_mmonly``.
+one call of each variant and of its whole run (the call, the warm-up and the
+timed calls), the card and the shapes.  It runs on the card unless given
+``--device cpu``, which runs the plain versions (host clock, for the CPU
+test); without a card and without ``--device cpu`` it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -49,8 +60,14 @@ SHAPE = (1, 32, 64, 768)   # B, H, W, V
 PAD = 2
 MODE = "bicubic"
 CHUNK_ROWS = 8
-VARIANTS = ("cuda_fwd", "cuda_fwdbwd", "chunked_fwd", "chunked_fwdbwd", "genonly",
-            "bwd_genonly", "ns_update")
+VARIANTS = ("xla_fwd", "xla_fwdbwd", "cuda_fwd", "cuda_fwdbwd", "chunked_fwd",
+            "chunked_fwdbwd", "genonly", "mm_f32_vb8", "mm_bf16_vb8", "mm_bf16_vb32",
+            "mm_bf16_vb128", "mmT_bf16_vb8", "bwd_genonly", "bwd_mmonly", "ns_update")
+# the contraction variants: operand dtype, channel block, position block
+MM_VARIANTS = {"mm_f32_vb8": (torch.float32, 8, 1024), "mm_bf16_vb8": (torch.bfloat16, 8, 1024),
+               "mm_bf16_vb32": (torch.bfloat16, 32, 256),
+               "mm_bf16_vb128": (torch.bfloat16, 128, 128),
+               "mmT_bf16_vb8": (torch.bfloat16, 8, 1024)}
 
 
 def card_line() -> str | None:
@@ -64,11 +81,14 @@ def launch_counts() -> dict[str, int]:
     """The launch counters of every interpolation kernel wrapper."""
     from paradis_torch.ops import interp_cuda as ic
     from paradis_torch.ops import interp_gen as ig
+    from paradis_torch.ops import interp_mm as im
 
     return {"interp_fwd": ic.launches, "interp_bwd": ic.bwd_launches,
             "interp_band_fwd": ic.band_launches, "interp_band_bwd": ic.band_bwd_launches,
             "interp_chunk_fwd": ic.chunk_launches, "interp_chunk_bwd": ic.chunk_bwd_launches,
-            "interp_gen": ig.gen_launches, "interp_bwd_gen": ig.bwd_gen_launches}
+            "interp_gen": ig.gen_launches, "interp_bwd_gen": ig.bwd_gen_launches,
+            "interp_mm": im.mm_launches, "interp_mmT": im.mmT_launches,
+            "interp_bwd_mm": im.bwd_mm_launches}
 
 
 def inputs(shape, device):
@@ -83,28 +103,70 @@ def inputs(shape, device):
     return field.to(device), py.to(device), px.to(device)
 
 
+def channel_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, ..., V] → contiguous [B, V, ...] (the TPU bench's ``moveaxis``)."""
+    return torch.movedim(x, -1, 1).contiguous()
+
+
 def interp_variants(shape, device) -> dict:
-    """The interpolation and weight-generation variants, each a call."""
+    """The interpolation, weight-generation and dense-backward variants,
+    each a call."""
     from paradis_torch.ops.advection import interpolate
     from paradis_torch.ops.interp_gen import bwd_gen, gen
+    from paradis_torch.ops.interp_mm import bwd_mm
 
     field, py, px = inputs(shape, device)
-    R, C = field.shape[1], field.shape[2]
+    B, R, C, V = field.shape
     leaves = [t.clone().requires_grad_() for t in (field, py, px)]
+    field_t = channel_major(field)
+    py_t, px_t = (channel_major(t.reshape(B, -1, V)) for t in (py, px))
+    g_t = torch.ones_like(py_t)
 
-    def fwd(rw):
-        return lambda: interpolate(field, py, px, MODE, chunk_rows=rw)
+    def fwd(impl, rw=0):
+        return lambda: interpolate(field, py, px, MODE, impl, chunk_rows=rw)
 
-    def fwdbwd(rw):
+    def fwdbwd(impl, rw=0):
         def run():
-            out = interpolate(*leaves, MODE, chunk_rows=rw)
+            out = interpolate(*leaves, MODE, impl, chunk_rows=rw)
             return torch.autograd.grad(out.float().sum(), leaves)
         return run
 
-    return {"cuda_fwd": fwd(0), "cuda_fwdbwd": fwdbwd(0),
-            "chunked_fwd": fwd(CHUNK_ROWS), "chunked_fwdbwd": fwdbwd(CHUNK_ROWS),
+    return {"xla_fwd": fwd("xla"), "xla_fwdbwd": fwdbwd("xla"),
+            "cuda_fwd": fwd("auto"), "cuda_fwdbwd": fwdbwd("auto"),
+            "chunked_fwd": fwd("auto", CHUNK_ROWS), "chunked_fwdbwd": fwdbwd("auto", CHUNK_ROWS),
             "genonly": lambda: gen(py, px, R, C, MODE),
-            "bwd_genonly": lambda: bwd_gen(py, px, R, C, MODE)}
+            "bwd_genonly": lambda: bwd_gen(py, px, R, C, MODE),
+            "bwd_mmonly": lambda: bwd_mm(field_t, py_t, px_t, g_t, torch.bfloat16)}
+
+
+def mm_operands(shape, device, transposed: bool):
+    """wx [B, V, P, C] (wxT [B, V, C, P]) and f [B, V, R, C], float32 normal
+    from a fresh ``default_rng(1)`` in that order, as ``scripts/bench_interp.py``
+    draws them for ``mm_only`` (``mmT_only``)."""
+    B, H, W, V = shape
+    R, C, P = H + 2 * PAD, W + 2 * PAD, H * W
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(B, V, C, P) if transposed else (B, V, P, C)).astype(np.float32)
+    f = rng.normal(size=(B, V, R, C)).astype(np.float32)
+    return torch.from_numpy(w).to(device), torch.from_numpy(f).to(device)
+
+
+def mm_variants(shape, device, names) -> dict:
+    """The contraction variants among ``names``, each a call; their operands
+    are drawn only when asked for (428 MB of wx at the bench's shapes)."""
+    from paradis_torch.ops.interp_mm import mm, mmT
+
+    calls, operands = {}, {}
+    for name in names:
+        if name not in MM_VARIANTS:
+            continue
+        cdt, vb, pb = MM_VARIANTS[name]
+        transposed = name.startswith("mmT")
+        if transposed not in operands:
+            operands[transposed] = mm_operands(shape, device, transposed)
+        w, f = operands[transposed]
+        calls[name] = functools.partial(mmT if transposed else mm, w, f, cdt, vb, pb)
+    return calls
 
 
 def ns_variant(shape, device, overrides=()):
@@ -177,18 +239,20 @@ def main(argv=None) -> dict:
         raise ValueError(f"unknown variants {unknown}; known: {list(VARIANTS)}")
 
     calls = interp_variants(shape, device)
+    calls.update(mm_variants(shape, device, names))
     if "ns_update" in names:
         calls["ns_update"] = ns_variant(shape, device, args.override)
-    ms, launches = {}, {}
+    ms, launches, in_run = {}, {}, {}
     for name in names:
         fn = calls[name]
         before = launch_counts()
         fn()
         launches[name] = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
         ms[name] = time_ms(fn, device, args.iters, args.repeats, args.warmup)
+        in_run[name] = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
         print(f"{name:16s} {ms[name]:10.4f} ms/op", flush=True)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    res = {"ms_per_op": ms, "launches_per_op": launches,
+    res = {"ms_per_op": ms, "launches_per_op": launches, "launches_per_run": in_run,
            "device": {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": kind},
            "card": card_line() if device.type == "cuda" else None,
            "shape": list(shape), "pad": PAD, "mode": MODE, "field_dtype": "bfloat16",

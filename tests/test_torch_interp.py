@@ -82,7 +82,7 @@ def test_interpolate_dispatch_and_row_clamp(max_dy_pix):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL["float32"], rtol=0)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla", "gather", "cuda"])
+@pytest.mark.parametrize("impl", ["pallas", "dense", "gather", "cuda"])
 def test_interpolate_rejects_unknown_impl(impl):
     field, py, px = (torch.from_numpy(a) for a in _inputs(1, 6, 8, 2, 2, 4, seed=0))
     with pytest.raises(ValueError, match="advection impl"):

@@ -297,3 +297,80 @@ def test_gen_kernels_match_plain_on_card(mode, shape):
         ref = plain(y, x, R, C, mode)
         assert torch.isfinite(out).all()
         assert float((out - ref).abs().max()) <= 5e-6
+
+
+# |kernel − plain| / max |plain|, for unit-spread operands: the same float32
+# products of identically rounded operands, summed in other orders (the
+# kernels over (column, row) pairs, torch's matmul per row, then over rows),
+# chip_smoke.py's ``MM_TOL``.
+MM_TOL = 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(8, 1024), (32, 256), (128, 128), (5, 300)],
+                         ids=["vb8", "vb32", "vb128", "vb5-pb300"])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68)],
+                         ids=["tail", "bench-rows"])
+def test_mm_kernels_match_plain_on_card(shape, cdt, blocks):
+    """The contraction kernels (wx and its transposed layout) against their
+    plain versions, where V is no multiple of the channel block and P no
+    multiple of the position tile (the tail), and at the bench's R, C, P."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops import interp_mm
+
+    B, V, P, R, C = shape
+    vb, pb = blocks
+    tdt = getattr(torch, cdt)
+    rng = np.random.default_rng(31)
+    wx = torch.from_numpy(rng.normal(size=(B, V, P, C)).astype(np.float32)).cuda()
+    wxT = torch.from_numpy(rng.normal(size=(B, V, C, P)).astype(np.float32)).cuda()
+    f = torch.from_numpy(rng.normal(size=(B, V, R, C)).astype(np.float32)).cuda()
+    for kernel, plain, w, counter in ((interp_mm.mm_cuda, interp_mm.mm_plain, wx, "mm_launches"),
+                                      (interp_mm.mmT_cuda, interp_mm.mmT_plain, wxT,
+                                       "mmT_launches")):
+        before = getattr(interp_mm, counter)
+        out = kernel(w, f, tdt, vb, pb)
+        torch.cuda.synchronize()
+        assert getattr(interp_mm, counter) == before + 1
+        ref = plain(w, f, tdt)
+        assert out.shape == ref.shape == (B, V, P) and torch.isfinite(out).all()
+        err = float((out - ref).abs().max()) / float(ref.abs().max())
+        assert err <= MM_TOL, (kernel.__name__, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("field_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68)],
+                         ids=["tail", "bench-rows"])
+def test_bwd_mm_kernel_matches_plain_on_card(shape, field_dtype, cdt):
+    """The dense-backward contraction kernel against its plain version
+    (``MM_TOL`` of each output's largest value), run twice to the same bits
+    (d_field is summed in one block's shared memory, no atomics), and d_px
+    equal to d_py up to float order (the stand-in weights' second half is
+    half the first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops import interp_mm
+
+    B, V, P, R, C = shape
+    rng = np.random.default_rng(32)
+    field = torch.from_numpy(rng.normal(size=(B, V, R, C)).astype(np.float32)).cuda()
+    field = field.to(getattr(torch, field_dtype))
+    py, px, g = (torch.from_numpy(rng.uniform(lo, hi, size=(B, V, P)).astype(np.float32)).cuda()
+                 for lo, hi in ((2.0, R - 3.0), (2.0, C - 3.0), (-1.0, 1.0)))
+    tdt = getattr(torch, cdt)
+    before = interp_mm.bwd_mm_launches
+    outs = interp_mm.bwd_mm_cuda(field, py, px, g, tdt)
+    again = interp_mm.bwd_mm_cuda(field, py, px, g, tdt)
+    torch.cuda.synchronize()
+    assert interp_mm.bwd_mm_launches == before + 2
+    for name, o, a, r in zip(("d_field", "d_py", "d_px"), outs, again,
+                             interp_mm.bwd_mm_plain(field, py, px, g, tdt)):
+        assert o.dtype == torch.float32 and o.shape == r.shape and torch.isfinite(o).all()
+        assert torch.equal(o, a), name
+        err = float((o - r).abs().max()) / float(r.abs().max())
+        assert err <= MM_TOL, (name, err)
+    assert float((outs[1] - outs[2]).abs().max()) <= MM_TOL * float(outs[1].abs().max())

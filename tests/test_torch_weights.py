@@ -110,7 +110,7 @@ def test_same_seed_same_weights():
 
 @pytest.mark.parametrize("override,match", [
     ("compute.advection_impl=pallas", "advection_impl"),
-    ("compute.advection_impl=xla", "advection_impl"),
+    ("compute.advection_impl=gather", "advection_impl"),
     ("compute.advection_impl=plain", "advection_impl"),
     ("compute.gradient_checkpointing=true compute.remat_policy=advect", "remat_policy"),
     ("compute.gradient_checkpointing=true compute.remat_policy=advect_pos", "remat_policy"),
