@@ -219,8 +219,9 @@ def interp_band_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.
 def interp_chunk_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                           rw: int, mode: str = "bicubic") -> torch.Tensor:
     """Launch the row-chunked forward kernel: arguments as ``interp_fwd_cuda``
-    plus ``rw`` rows a chunk.  Raises where one channel's chunk does not fit
-    the card's shared memory."""
+    plus ``rw`` rows a chunk (checked; the kernel stages its tiles' own row
+    windows, whatever ``rw``).  Raises where one field row of one channel
+    does not fit the card's shared memory."""
     global chunk_launches
     _check(field, pix_y, pix_x, mode)
     check_rw(rw)
@@ -236,7 +237,7 @@ def interp_chunk_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch
                  _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_chunk_fwd kernel launch failed with CUDA error {err} "
-                           f"(a chunk of {rw} rows x {C} columns may not fit in shared memory)")
+                           f"(a row of {C} columns may not fit in shared memory)")
     chunk_launches += 1
     return out
 

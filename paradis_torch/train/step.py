@@ -16,8 +16,9 @@ Batch layout (channels-last, on the model's device): ``input [B,H,W,C_dyn]``,
 ``target [B,S,H,W,C_out]``, ``forcings [B,S,H,W,F]``, ``constants [B,H,W,K]``.
 Metrics stay on the device (no host sync): ``loss``, ``loss_per_step [S]``,
 ``grad_norm`` (0 on a step that does not apply) and ``applied``, plus under
-``training.log_additional_stats`` the microstep's gradients by parameter name
-and the first step's per-channel weighted and unweighted losses.
+``training.log_additional_stats`` the microstep's raw (unclipped) gradients
+by parameter name and the first step's per-channel weighted and unweighted
+losses.
 """
 
 from __future__ import annotations
@@ -94,6 +95,13 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer)
             dyn = dyn.detach()
 
         losses_all = torch.stack(losses)
+        metrics = {"loss": losses_all.mean(), "loss_per_step": losses_all}
+        if deep_stats:
+            # this microstep's raw gradients, read before the optimizer's
+            # gradient clip scales ``.grad`` in place
+            metrics["grads"] = {n: (p.grad - before[n] if n in before else p.grad.clone())
+                                for n, p in named if p.grad is not None}
+            metrics["channel_loss_weighted"], metrics["channel_loss_unweighted"] = diag0
         state.micro_step += 1
         applied = state.micro_step % grad_accum == 0
         if applied:
@@ -102,14 +110,7 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer)
             state.step += 1
         else:
             gnorm = torch.zeros((), device=losses_all.device)
-        metrics = {"loss": losses_all.mean(), "loss_per_step": losses_all,
-                   "grad_norm": gnorm, "applied": applied}
-        if deep_stats:
-            # this microstep's gradients (read before a zero_grad clears them
-            # at the start of the next window)
-            metrics["grads"] = {n: (p.grad - before[n] if n in before else p.grad.clone())
-                                for n, p in named if p.grad is not None}
-            metrics["channel_loss_weighted"], metrics["channel_loss_unweighted"] = diag0
+        metrics.update(grad_norm=gnorm, applied=applied)
         return metrics
 
     return train_step

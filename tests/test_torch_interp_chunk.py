@@ -86,13 +86,14 @@ def _pallas(field, py, px, g, mode, dtype, rw):
 # (the Pallas kernels pad it to 24 / 32, the CUDA kernels stage a short last
 # chunk), spread positions span every chunk; the narrow case has H 32, W 16
 # over P = 512 positions in Pallas blocks of 128 (four blocks, most chunks
-# skipped in each).
+# skipped in each); rw 32 exceeds Hp (one chunk, padded to 32 rows in Pallas).
 CASES = {
     "rw8-bilinear": ("bilinear", "float32", 8, 22, 20, 18, 16, 4, False),
     "rw8-bicubic": ("bicubic", "float32", 8, 22, 20, 18, 16, 4, False),
     "rw16-bilinear": ("bilinear", "float32", 16, 22, 20, 18, 16, 4, False),
     "rw16-bicubic": ("bicubic", "float32", 16, 22, 20, 18, 16, 4, False),
     "rw8-bicubic-bf16": ("bicubic", "bfloat16", 8, 22, 20, 18, 16, 4, False),
+    "rw32-bilinear-bf16": ("bilinear", "bfloat16", 32, 22, 20, 18, 16, 4, False),
     "rw8-bicubic-narrow": ("bicubic", "float32", 8, 36, 20, 32, 16, 2, True),
     "rw16-bilinear-narrow": ("bilinear", "float32", 16, 34, 18, 32, 16, 2, True),
 }

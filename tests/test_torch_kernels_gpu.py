@@ -192,9 +192,20 @@ def _chunk_inputs(shape, dtype, seed, depart_px=None):
             torch.from_numpy(px).cuda(), torch.from_numpy(g).cuda().to(tdt))
 
 
+# (B, R, C, V, H, W) of the chunked cases: the 5.625° field with V no
+# multiple of the channel group; a tail; the 1.40625° field (260 columns)
+# with 64 channels, whose random positions' window (all 132 rows) is taller
+# than the forward's shared-memory slab at any block size; a ragged last
+# tile of positions with V a multiple of the channel group (16-byte copies);
+# and V below one channel group (groups of one channel)
+CHUNK_SHAPES = {"random": (1, 36, 68, 77, 32, 64), "departure": (1, 36, 68, 77, 32, 64),
+                "tail": (1, 13, 22, 77, 9, 15), "tall": (1, 132, 260, 64, 64, 128),
+                "ragged": (1, 36, 68, 24, 31, 63), "narrow": (1, 36, 68, 3, 31, 63)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random-rw8", "departure-rw8", "tail-rw8", "tail-rw32",
-                                  "departure-rw16"])
+                                  "departure-rw16", "tall-rw32", "ragged-rw8", "narrow-rw8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
 def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
@@ -210,7 +221,7 @@ def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
 
     kind, rw = case.split("-rw")
     rw = int(rw)
-    shape = (1, 13, 22, 77, 9, 15) if kind == "tail" else (1, 36, 68, 77, 32, 64)
+    shape = CHUNK_SHAPES[kind]
     f, y, x, g = _chunk_inputs(shape, dtype, seed=11 + rw,
                                depart_px=3.0 if kind == "departure" else None)
     rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
@@ -252,17 +263,26 @@ def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
 
 @pytest.mark.gpu
 def test_chunk_kernels_refuse_a_chunk_that_does_not_fit():
-    """A chunk of one channel larger than the card's shared memory raises
-    (and counts no launch); it does not run the unchunked kernel."""
+    """The backward refuses a chunk of one channel larger than the card's
+    shared memory (64 rows x 4096 fp32 columns, 1 MB), which the forward now
+    takes, whatever ``rw``; the forward refuses only a field whose one row of
+    one channel does not fit (65536 fp32 columns, 256 KB).  A refusal raises
+    and counts no launch; it does not run the unchunked kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    f = torch.zeros(1, 64, 4096, 1, device="cuda")
+    f = torch.randn(1, 64, 4096, 1, device="cuda")
     y = torch.full((1, 2, 2, 1), 3.5, device="cuda")
     n0 = (interp_cuda.launches, interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
-    with pytest.raises(RuntimeError, match="interp_chunk_fwd"):
-        interp_cuda.interp_chunk_fwd_cuda(f, y, y, 64, "bicubic")
+    out = interp_cuda.interp_chunk_fwd_cuda(f, y, y, 64, "bicubic")
+    torch.cuda.synchronize()
+    assert (interp_cuda.launches, interp_cuda.chunk_launches) == (n0[0], n0[1] + 1)
+    assert torch.equal(out, interp_cuda.interp_fwd_cuda(f, y, y, "bicubic"))
+    n0 = (interp_cuda.launches, interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
     with pytest.raises(RuntimeError, match="interp_chunk_bwd"):
         interp_cuda.interp_chunk_bwd_cuda(f, y, y, y, 64, "bicubic")
+    wide = torch.zeros(1, 2, 65536, 1, device="cuda")
+    with pytest.raises(RuntimeError, match="interp_chunk_fwd"):
+        interp_cuda.interp_chunk_fwd_cuda(wide, y, y, 1, "bicubic")
     assert (interp_cuda.launches, interp_cuda.chunk_launches,
             interp_cuda.chunk_bwd_launches) == n0
 

@@ -7,7 +7,9 @@ reversed Huber loss and NorMuon (float32 Newton–Schulz, so the comparison is
 not swamped by bf16 iterates) over the same seeded numpy batches, in three
 configurations: the default, TBPTT with ``detach_gradient_every=1`` over two
 forecast steps, and ``accumulate_grad_batches=2`` with
-``log_additional_stats`` on.  Each configuration costs the JAX side a trace
+``log_additional_stats`` on and a ``gradient_clip_val`` that binds on the
+toy (the logged gradients are the raw ones, taken before the clip scales
+them).  Each configuration costs the JAX side a trace
 and compile of ~25-40 CPU-seconds, most of this file's time.
 
 Limits: per-step losses and gradient norms within rtol 1e-5 (float32 sums
@@ -65,7 +67,8 @@ def _losses(pair):
 @pytest.mark.parametrize("overrides", [
     [],
     ["model.forecast_steps=2", "training.optimizer.detach_gradient_every=1"],
-    ["training.accumulate_grad_batches=2", "training.log_additional_stats=true"],
+    ["training.accumulate_grad_batches=2", "training.log_additional_stats=true",
+     "training.gradient_clip_val=0.05"],
 ], ids=["default", "tbptt-S2", "accumulate-2-stats"])
 def test_train_steps_match_jax(overrides):
     pair = build_pair("training.optimizer.ns_dtype=float32", *overrides)
@@ -78,6 +81,7 @@ def test_train_steps_match_jax(overrides):
     tstate = create_train_state(pair.model, topt)
     start = flax_to_state(jax.tree.map(np.asarray, pair.params), len(pair.model.layers))
     stats = bool(pair.cfg.training.log_additional_stats)
+    clip = pair.cfg.training.get("gradient_clip_val", None)
 
     S = int(pair.cfg.model.forecast_steps)
     for batch in _batches(pair, S, STEPS):
@@ -89,6 +93,8 @@ def test_train_steps_match_jax(overrides):
                                    rtol=RTOL)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=RTOL)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=RTOL)
+        if clip is not None and tm["applied"]:
+            assert float(tm["grad_norm"]) > float(clip)  # the clip binds
         assert stats == ("grads" in tm)
         if stats:
             for key in ("channel_loss_weighted", "channel_loss_unweighted"):
