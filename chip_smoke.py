@@ -75,7 +75,9 @@ Phases, each of which makes the script exit non-zero when it fails:
     position blocks), ``mmT`` and ``bwd_mm`` against their plain versions at
     the microbenchmark's shapes (B·V 768, P 2048, R 36, C 68) and at a tail
     shape (V 77, P 1000, R 13, C 22), timed beside the same work through
-    ``torch.matmul`` and the bound;
+    ``torch.matmul`` and the bound; for each operand type, ``mm``'s outputs
+    bitwise equal across the variants' and four more channel and position
+    blocks on one set of operands (its grid is its own);
 11. the dense interpolation path (``[forecast-dense]``): a 40-step float32
     rollout at 5.625° with ``compute.advection_impl=xla``, which launches no
     interpolation kernel, its first step against the plain path;
@@ -90,6 +92,7 @@ the repository beside it, the script fails before printing any result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -197,6 +200,9 @@ GEN_TOL = 5e-6
 # outputs up to ~270 with order errors of ~1e-4: measured ≤ 8.8e-7 (mm) and
 # 8.9e-7 (bwd_mm's d_field) at the microbenchmark's shapes on an H100.
 MM_TOL = 2e-5
+# channel and position blocks (vb, pb) that mm's bitwise check adds to the
+# variants': the variants' own, and one that divides neither V nor P
+MM_BLOCKS = ((8, 1024), (32, 256), (128, 128), (5, 300))
 
 
 def log(msg: str) -> None:
@@ -545,6 +551,41 @@ def mm_bound(nbytes: int, flops: int, cdt) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def mm_operands(shape, transposed: bool):
+    """Normal wx [B,V,P,C] (or wxT [B,V,C,P]) and f [B,V,R,C], seeded by the
+    shape alone, so that every variant of a layout gets the same operands."""
+    import torch
+
+    B, V, P, R, C = shape
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    w = torch.randn((B, V, C, P) if transposed else (B, V, P, C), generator=gen, device="cuda")
+    f = torch.randn(B, V, R, C, generator=gen, device="cuda")
+    return w, f
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes: equal digests, bitwise equal tensors."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def check_mm_blocks(cdt_name: str, shape, variant_digests: dict) -> dict:
+    """``mm``'s output bitwise the same whatever the channel and position
+    blocks: the digests of the ``check_mm`` variants of this operand type
+    (same operands) and of one launch at each of ``MM_BLOCKS``."""
+    import torch
+
+    from paradis_torch.ops import interp_mm
+
+    w, f = mm_operands(shape, transposed=False)
+    digests = dict(variant_digests)
+    cdt = getattr(torch, cdt_name)
+    for vb, pb in MM_BLOCKS:
+        digests[f"vb{vb}-pb{pb}"] = digest(interp_mm.mm_cuda(w, f, cdt, vb, pb))
+    same = len(set(digests.values())) == 1
+    return {"kernel": "interp_mm", "cdt": cdt_name, "shape": list(shape),
+            "blocks": sorted(digests), "bitwise_equal_across_blocks": same, "ok": same}
+
+
 def check_mm(variant: str, shape, timed: bool) -> dict:
     """The contraction kernel of a ``bench_interp.MM_VARIANTS`` variant
     (``mm`` on wx [B,V,P,C], ``mmT`` on wxT [B,V,C,P]) against its plain
@@ -561,9 +602,7 @@ def check_mm(variant: str, shape, timed: bool) -> dict:
     cdt, vb, pb = MM_VARIANTS[variant]
     transposed = variant.startswith("mmT")
     B, V, P, R, C = shape
-    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + vb)
-    w = torch.randn((B, V, C, P) if transposed else (B, V, P, C), generator=gen, device="cuda")
-    f = torch.randn(B, V, R, C, generator=gen, device="cuda")
+    w, f = mm_operands(shape, transposed)
     if transposed:
         kernel = lambda: interp_mm.mmT_cuda(w, f, cdt, vb, pb)  # noqa: E731
         plain = lambda: interp_mm.mmT_plain(w, f, cdt)  # noqa: E731
@@ -582,7 +621,8 @@ def check_mm(variant: str, shape, timed: bool) -> dict:
     res = {"variant": variant, "kernel": "interp_mmT" if transposed else "interp_mm",
            "cdt": str(cdt).removeprefix("torch."), "vb": vb, "pb": pb, "shape": list(shape),
            "max_abs_err": err, "max_abs_plain": scale, "rel_err": err / scale,
-           "limit": MM_TOL, "ok": bool(torch.isfinite(out).all()) and err <= MM_TOL * scale}
+           "limit": MM_TOL, "out_sha256": digest(out),
+           "ok": bool(torch.isfinite(out).all()) and err <= MM_TOL * scale}
     if timed:
         res["ms"] = time_ms(kernel, iters=50)
         res["plain_ms"] = time_ms(plain, iters=10, warmup=2)
@@ -1129,6 +1169,10 @@ def main() -> int:
     mm_tail = (1, 77, 1000, 13, 22)
     mm_checks = [check_mm(variant, shape, timed=shape == bench_mm)
                  for variant in bench_interp.MM_VARIANTS for shape in (bench_mm, mm_tail)]
+    mm_checks += [check_mm_blocks(cdt_name, shape, {
+        c["variant"]: c["out_sha256"] for c in mm_checks
+        if c["kernel"] == "interp_mm" and c["cdt"] == cdt_name and c["shape"] == list(shape)})
+        for cdt_name in ("float32", "bfloat16") for shape in (bench_mm, mm_tail)]
     mm_checks += [check_bwd_mm("bfloat16", "bfloat16", bench_mm, timed=True),
                   check_bwd_mm("bfloat16", "bfloat16", mm_tail, timed=False),
                   check_bwd_mm("float32", "float32", mm_tail, timed=False)]
@@ -1136,7 +1180,8 @@ def main() -> int:
         log("[kernel-mm] " + json.dumps(c))
     bad = [c for c in mm_checks if not c["ok"]]
     if bad:
-        raise SystemExit(f"contraction kernel disagrees with its plain version: {bad}")
+        raise SystemExit(f"contraction kernel disagrees with its plain version, or mm's "
+                         f"output with its own at another blocking: {bad}")
 
     runs, hr_runs = {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):

@@ -110,7 +110,9 @@ def _launch_mm(name: str, w: torch.Tensor, f: torch.Tensor, P: int, cdt, vb: int
 def mm_cuda(wx: torch.Tensor, f: torch.Tensor, cdt: torch.dtype = torch.float32, vb: int = 8,
             pb: int = 1024) -> torch.Tensor:
     """Launch the contraction kernel on float32 wx [B,V,P,C] and f [B,V,R,C]:
-    ``mm_plain``'s function, a block taking ``vb`` planes and ``pb`` positions."""
+    ``mm_plain``'s function on the kernel's own persistent grid.  ``vb`` and
+    ``pb`` (the TPU's channel and position blocks) must be positive and shape
+    nothing: every blocking gives the same bits."""
     global mm_launches
     if wx.dim() != 4 or f.dim() != 4 or wx.shape[:2] != f.shape[:2] or wx.shape[3] != f.shape[3]:
         raise ValueError(f"expected wx [B,V,P,C] and f [B,V,R,C]; got {tuple(wx.shape)}, "
@@ -123,7 +125,8 @@ def mm_cuda(wx: torch.Tensor, f: torch.Tensor, cdt: torch.dtype = torch.float32,
 def mmT_cuda(wxT: torch.Tensor, f: torch.Tensor, cdt: torch.dtype = torch.bfloat16, vb: int = 8,
              pb: int = 1024) -> torch.Tensor:
     """Launch the transposed contraction kernel on float32 wxT [B,V,C,P] and f
-    [B,V,R,C]: ``mmT_plain``'s function."""
+    [B,V,R,C]: ``mmT_plain``'s function, a block taking ``vb`` planes and
+    ``pb`` positions."""
     global mmT_launches
     if wxT.dim() != 4 or f.dim() != 4 or wxT.shape[:3] != (*f.shape[:2], f.shape[3]):
         raise ValueError(f"expected wxT [B,V,C,P] and f [B,V,R,C]; got {tuple(wxT.shape)}, "

@@ -330,12 +330,17 @@ MM_TOL = 2e-5
 @pytest.mark.parametrize("blocks", [(8, 1024), (32, 256), (128, 128), (5, 300)],
                          ids=["vb8", "vb32", "vb128", "vb5-pb300"])
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68)],
-                         ids=["tail", "bench-rows"])
+@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68),
+                                   (1, 133, 2048, 36, 68), (1, 16, 1000, 36, 68)],
+                         ids=["tail", "bench-rows", "uneven-grid", "p-tail"])
 def test_mm_kernels_match_plain_on_card(shape, cdt, blocks):
     """The contraction kernels (wx and its transposed layout) against their
     plain versions, where V is no multiple of the channel block and P no
-    multiple of the position tile (the tail), and at the bench's R, C, P."""
+    multiple of the position tile (the tail, rows not 16-byte aligned), at
+    the bench's R, C, P, with 133 planes (mm's persistent blocks get unequal
+    counts of tiles) and with P no multiple of mm's 128-position tile at the
+    bench's C.  mm's grid is its own: its output is bitwise the same for
+    every channel and position block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from paradis_torch.ops import interp_mm
@@ -358,6 +363,8 @@ def test_mm_kernels_match_plain_on_card(shape, cdt, blocks):
         assert out.shape == ref.shape == (B, V, P) and torch.isfinite(out).all()
         err = float((out - ref).abs().max()) / float(ref.abs().max())
         assert err <= MM_TOL, (kernel.__name__, err)
+        if kernel is interp_mm.mm_cuda:
+            assert torch.equal(out, kernel(w, f, tdt, 8, 1024))
 
 
 @pytest.mark.gpu
