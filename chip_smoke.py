@@ -13,7 +13,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 3. hold the interpolation kernel against its plain PyTorch version at the
    5.625° flagship shapes (field [1, 36, 68, 768], positions
    [1, 32, 64, 768], a share of them outside the field), bicubic and
-   bilinear, float32 and bfloat16, plus an odd P·V tail shape; time the
+   bilinear, float32 and bfloat16, plus an odd P·V tail shape, and bitwise
+   against the row-chunked kernel (``rw = 8``); print the route it takes
+   (``resident``: each channel group's whole field in shared memory, or
+   ``window``: each tile's row window); time the kernel, the row-chunked
    kernel, the plain version and ``F.grid_sample`` (a yardstick the port
    never calls) with CUDA events, beside the kernel's memory/compute bound;
 4. hold the interpolation backward kernel against its plain backward at the
@@ -39,7 +42,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    agree with the same model routed through the plain interpolation.  Then
    the same at 1.40625° (128 × 256) with ``compute.interp_band_rad=0.3``:
    the banded kernel must run exactly 8 × 40 times per rollout and the
-   unbanded one never;
+   unbanded one never.  The field and positions of the 5.625° rollouts'
+   first-step launches are recorded (``recording_fwd``, a wrapper of
+   ``interp_cuda.interp_fwd_cuda`` in this script only) and, in
+   ``[kernel-rollout]``, the kernel is held on them against its plain
+   version and, bitwise, against the row-chunked kernel, with the
+   departure points' distance from their arrival points (p50, p99, max) and
+   the share of taps outside the field, and timed beside the row-chunked
+   kernel, ``F.grid_sample``, the plain version and the bound (the weights
+   are seeded random: the repo has no trained checkpoint);
 7. the training path: the same flagship in the configuration
    ``configs/default.yaml`` trains (bf16 compute with fp32 parameters,
    NorMuon with bf16 Newton–Schulz, weighted reversed Huber with latitude
@@ -53,7 +64,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    1.40625° with ``compute.interp_band_rad=0.3`` and
    ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
    step launches the banded forward 16 times (8, and 8 in the backward's
-   replay), the banded backward 8 times and the unbanded kernels never;
+   replay), the banded backward 8 times and the unbanded kernels never.
+   ``[device-ms]`` prints the 5.625° forecast and train-step device ms a
+   step beside those this script measured with the direct-gather forward
+   kernel (``EARLIER_DEVICE_MS``);
 8. the row-chunked pair (``[kernel-chunk]``) at the 5.625° shapes with
    ``rw = 8``, at the 1.40625° shapes with ``rw = 32`` and at an odd tail
    shape whose last chunk has 5 rows, float32 and bfloat16, on random
@@ -106,6 +120,13 @@ NLAT, NLON = 32, 64        # 5.625°
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bfloat16 on the tensor cores
+SPIN_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep cycles a second, at or above the SM clock
+MAX_QUEUE_S = 0.25          # the longest spin time_ms queues its calls behind
+# device ms a 5.625° step that this script measured when the forward kernel
+# was a direct per-output gather from device memory (H100 80GB HBM3, 700 W;
+# PERF.md §5)
+EARLIER_DEVICE_MS = {"forecast float32": 17.01, "forecast bfloat16": 15.99,
+                     "train bfloat16": 73.63, "train float32": 91.87}
 KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
 BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
@@ -217,14 +238,27 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events).
+
+    The timed calls are queued behind a spin kernel that lasts as long as the
+    host takes to enqueue them (measured on a few calls, at most
+    ``MAX_QUEUE_S``), so that a call which the host enqueues slower than the
+    card runs it (a kernel of ~30 us behind a Python wrapper) is timed on the
+    card, not at the host's rate."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    sample = min(iters, 10)
+    t0 = time.perf_counter()
+    for _ in range(sample):
+        fn()
+    enqueue_s = (time.perf_counter() - t0) / sample
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * min(1.5 * enqueue_s * iters + 1e-3, MAX_QUEUE_S)))
     start.record()
     for _ in range(iters):
         fn()
@@ -309,10 +343,13 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     plain version and against the unbanded kernel on the same positions;
     with ``chunk_rw``, the row-chunked kernel (on positions clamped to
     ``depart_px`` when given), held against its plain version and, bitwise,
-    against the unbanded kernel.  With ``timed``, the kernel's time beside
-    the plain version's, ``F.grid_sample``'s, the unbanded kernel's (and,
-    for a chunked case where the band gate passes at ``depart_px``, the
-    banded kernel's) and the bound."""
+    against the unbanded kernel; else the unbanded kernel, held against its
+    plain version and, bitwise, against the row-chunked kernel at
+    ``CHUNK_RW``, with the route it takes.  With ``timed``, the kernel's time
+    beside the plain version's, ``F.grid_sample``'s, the unbanded kernel's
+    (or, for the unbanded kernel, the row-chunked kernel's; and, for a
+    chunked case where the band gate passes at ``depart_px``, the banded
+    kernel's) and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -320,7 +357,7 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     from paradis_torch.ops.interp_band import interp_band_plain
     from paradis_torch.ops.interp_chunk import interp_chunk_plain
     from paradis_torch.ops.interp_cuda import (interp_band_fwd_cuda, interp_chunk_fwd_cuda,
-                                               interp_fwd_cuda)
+                                               interp_fwd_cuda, interp_fwd_route)
 
     dtype = getattr(torch, dtype_name)
     B, R, C, V, H, W = shape
@@ -342,6 +379,8 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     refs = {"plain": plain()}
     if band_px is not None or chunk_rw:
         refs["unbanded"] = interp_fwd_cuda(field, py, px, mode)
+    else:
+        refs["chunk"] = interp_chunk_fwd_cuda(field, py, px, CHUNK_RW, mode)
     torch.cuda.synchronize()
     atol, rtol = KERNEL_TOL[dtype_name]
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
@@ -352,6 +391,10 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
         res.update(chunk_rw=chunk_rw, depart_px=depart_px,
                    bitwise_equal_unbanded=bool(torch.equal(out, refs["unbanded"])))
         res["ok"] = res["ok"] and res["bitwise_equal_unbanded"]
+    elif band_px is None:
+        res.update(route=interp_fwd_route(field, mode),
+                   bitwise_equal_chunk=bool(torch.equal(out, refs["chunk"])))
+        res["ok"] = res["ok"] and res["bitwise_equal_chunk"]
     for name, ref in refs.items():
         diff = (out.float() - ref.float()).abs()
         limit = atol + rtol * ref.float().abs()
@@ -365,6 +408,9 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
         if band_px is not None or chunk_rw:
             res["unbanded_ms"] = time_ms(lambda: interp_fwd_cuda(field, py, px, mode),
                                          iters=k_iters)
+        else:
+            res["chunk_ms"] = time_ms(
+                lambda: interp_chunk_fwd_cuda(field, py, px, CHUNK_RW, mode), iters=k_iters)
         if chunk_rw and spec is not None:
             res["banded_ms"] = time_ms(lambda: interp_band_fwd_cuda(field, py, px, spec, mode),
                                        iters=k_iters)
@@ -380,6 +426,87 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
             lib_out = lib().reshape(B, V, H, W).permute(0, 2, 3, 1)
             res["library_max_abs_diff_vs_plain"] = float((lib_out - refs["plain"]).abs().max())
         res["bound_ms"], res["bound_by"] = bound(field, py, mode)
+    return res
+
+
+def sorted_quantiles(values, qs) -> list[float]:
+    """Quantiles of a 1-D tensor by sorting it (no size limit)."""
+    v = values.sort().values
+    return [float(v[min(int(q * (v.numel() - 1) + 0.5), v.numel() - 1)]) for q in qs]
+
+
+def check_rollout_kernel(dtype_name: str, captured: list) -> dict:
+    """The unbanded forward kernel on the inputs of the first rollout step's
+    launches (``recording_fwd``; the model's weights are seeded random, the
+    repo has no trained checkpoint): each launch held against the plain
+    version within ``KERNEL_TOL`` and, bitwise, against the row-chunked kernel
+    at ``CHUNK_RW``.  The departure rows' and columns' distance from their
+    padded arrival point (p50, p99, max) and the share of taps outside the
+    field.  Times per launch, over the step's launches in turn (their inputs
+    together exceed the L2 cache): the kernel, the row-chunked kernel,
+    ``F.grid_sample``, the plain version, and the mean bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from paradis_torch.ops.interp import interp_plain, tap_weights
+    from paradis_torch.ops.interp_cuda import (interp_chunk_fwd_cuda, interp_fwd_cuda,
+                                               interp_fwd_route)
+
+    captured = [(f.cuda(), y.cuda(), x.cuda(), m) for f, y, x, m in captured]
+    atol, rtol = KERNEL_TOL[dtype_name]
+    res = {"dtype": dtype_name, "launches": len(captured), "shape": None,
+           "weights": "seeded random (no trained checkpoint)", "ok": len(captured) > 0,
+           "max_abs_err": 0.0, "worst_err_over_limit": 0.0, "bitwise_equal_chunk": True}
+    dys, dxs, taps_in, taps_all, routes = [], [], 0, 0, set()
+    for field, py, px, mode in captured:
+        B, R, C, V = field.shape
+        _, H, W, _ = py.shape
+        res["shape"], res["mode"] = [B, R, C, V, H, W], mode
+        routes.add(interp_fwd_route(field, mode))
+        out = interp_fwd_cuda(field, py, px, mode)
+        ref = interp_plain(field, py, px, mode)
+        chunk = interp_chunk_fwd_cuda(field, py, px, CHUNK_RW, mode)
+        diff = (out.float() - ref.float()).abs()
+        limit = atol + rtol * ref.float().abs()
+        res["max_abs_err"] = max(res["max_abs_err"], float(diff.max()))
+        res["worst_err_over_limit"] = max(res["worst_err_over_limit"],
+                                          float((diff / limit).max()))
+        res["bitwise_equal_chunk"] = res["bitwise_equal_chunk"] and bool(torch.equal(out, chunk))
+        res["ok"] = (res["ok"] and out.dtype == field.dtype and bool(torch.isfinite(out).all())
+                     and bool((diff <= limit).all()))
+        pad_y, pad_x = (R - H) // 2, (C - W) // 2
+        ay = torch.arange(H, device=py.device, dtype=torch.float32).view(1, H, 1, 1) + pad_y
+        ax = torch.arange(W, device=px.device, dtype=torch.float32).view(1, 1, W, 1) + pad_x
+        finite = torch.isfinite(py) & torch.isfinite(px)
+        dys.append((py - ay).abs()[finite])
+        dxs.append((px - ax).abs()[finite])
+        # taps of each position inside the field: rows in range × columns in range
+        n_in = 1
+        for pos, size in ((py, R), (px, C)):
+            i0, offsets, _ = tap_weights(pos, mode)
+            n_in = n_in * sum(((i0 + o >= 0) & (i0 + o <= size - 1)).float() for o in offsets)
+        taps_in += float((n_in * finite).sum())
+        taps_all += py.numel() * len(offsets) ** 2
+    res["ok"] = res["ok"] and res["bitwise_equal_chunk"]
+    res["routes"] = sorted(routes)
+    qs = (0.5, 0.99, 1.0)
+    res["row_displacement_px_p50_p99_max"] = sorted_quantiles(torch.cat(dys), qs)
+    res["col_displacement_px_p50_p99_max"] = sorted_quantiles(torch.cat(dxs), qs)
+    res["taps_outside_share"] = 1.0 - taps_in / taps_all
+    n = len(captured)
+    res["ms"] = time_ms(lambda: [interp_fwd_cuda(*c) for c in captured], iters=50) / n
+    res["chunk_ms"] = time_ms(
+        lambda: [interp_chunk_fwd_cuda(f, y, x, CHUNK_RW, m) for f, y, x, m in captured],
+        iters=50) / n
+    lib_args = [(*grid_sample_args(f, y, x, f.dtype), m) for f, y, x, m in captured]
+    res["library_ms"] = time_ms(
+        lambda: [F.grid_sample(img, grid, mode=m, padding_mode="zeros", align_corners=True)
+                 for img, grid, m in lib_args], iters=20) / n
+    res["plain_ms"] = time_ms(lambda: [interp_plain(*c) for c in captured], iters=3,
+                              warmup=1) / n
+    bounds = [bound(f, y, m) for f, y, _, m in captured]
+    res["bound_ms"] = sum(b for b, _ in bounds) / n
+    res["bound_by"] = bounds[0][1]
     return res
 
 
@@ -795,7 +922,7 @@ def interp_chunk_env(chunk_rw: int):
 
 
 def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=(),
-                 chunk_rw: int = 0, ab_pairs: int = 0) -> dict:
+                 chunk_rw: int = 0, ab_pairs: int = 0, capture: list | None = None) -> dict:
     """40-step full-width rollout on ``grid``; launch counts, finiteness,
     kernel-vs-plain.  With ``compute.interp_band_rad`` among ``overrides`` and
     the band gate on, every interpolation must go through the banded
@@ -803,13 +930,37 @@ def run_forecast(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=(),
     through the chunked kernel.  ``ab_pairs`` more pairs of rollouts then run
     with chunking off and on in turns (off, on, on, off, ...) on the same
     model: where the host bounds the rate and drifts over a call, only turns
-    compare the two paths."""
+    compare the two paths.  ``capture``, a list, receives the inputs of the
+    unbanded forward kernel's launches in the first rollout step (of the
+    warm-up rollout, before any count is read)."""
     with interp_chunk_env(chunk_rw):
-        return _run_forecast(dtype_name, card, grid, overrides, chunk_rw, ab_pairs)
+        return _run_forecast(dtype_name, card, grid, overrides, chunk_rw, ab_pairs, capture)
+
+
+@contextlib.contextmanager
+def recording_fwd(store: list, n: int):
+    """``interp_cuda.interp_fwd_cuda`` wrapped for the block, so that the
+    field, positions and mode of its first ``n`` calls are kept in ``store``
+    (copied to the host, so the run's peak device memory is its own); the
+    wrapper calls the kernel as before, and is removed after."""
+    from paradis_torch.ops import interp_cuda as ic
+
+    kernel = ic.interp_fwd_cuda
+
+    def recorded(field, pix_y, pix_x, mode="bicubic"):
+        if len(store) < n:
+            store.append((field.cpu(), pix_y.cpu(), pix_x.cpu(), mode))
+        return kernel(field, pix_y, pix_x, mode)
+
+    ic.interp_fwd_cuda = recorded
+    try:
+        yield
+    finally:
+        ic.interp_fwd_cuda = kernel
 
 
 def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
-                  ab_pairs: int) -> dict:
+                  ab_pairs: int, capture: list | None) -> dict:
     import numpy as np
     import torch
 
@@ -841,7 +992,9 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     rollout = make_forecast_rollout(model, cfg)
 
     warm = dict(batch, forcings=batch["forcings"][:, :2])
-    rollout(warm, d["n_common"])
+    with (recording_fwd(capture, n_layers) if capture is not None
+          else contextlib.nullcontext()):
+        rollout(warm, d["n_common"])
     torch.cuda.synchronize()
 
     times, counts, out = [], [], None
@@ -1183,10 +1336,11 @@ def main() -> int:
         raise SystemExit(f"contraction kernel disagrees with its plain version, or mm's "
                          f"output with its own at another blocking: {bad}")
 
-    runs, hr_runs = {}, {}
+    runs, hr_runs, first_step = {}, {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
         for dtype_name in ("float32", "bfloat16"):
-            res = run_forecast(dtype_name, card, grid, overrides)
+            capture = first_step.setdefault(dtype_name, []) if store is runs else None
+            res = run_forecast(dtype_name, card, grid, overrides, capture=capture)
             log("[forecast] " + json.dumps(res))
             if not res["ok"]:
                 raise SystemExit(f"forecast rollout failed its checks: {res}")
@@ -1195,7 +1349,19 @@ def main() -> int:
                 f"{res['forecast_steps_per_s']:.2f} steps/s ({STEPS}-step rollout, batch 1, "
                 f"banded {res['banded']}) on {card}")
 
+    # the unbanded forward kernel on the 5.625° rollouts' own first-step inputs
+    rollout_checks = [check_rollout_kernel(dtype_name, first_step.pop(dtype_name))
+                      for dtype_name in ("float32", "bfloat16")]
+    for c in rollout_checks:
+        log("[kernel-rollout] " + json.dumps(c))
+    bad = [c for c in rollout_checks if not c["ok"] or c["launches"] != runs[c["dtype"]]["layers"]]
+    if bad:
+        raise SystemExit(f"kernel disagrees with its plain version or the row-chunked kernel on "
+                         f"the rollout's inputs: {bad}")
+    torch.cuda.empty_cache()
+
     # the dense interpolation path: no interpolation kernel at all
+    reset_counts()
     before = bench_interp.launch_counts()
     dense = run_forecast("float32", card, (NLAT, NLON), ["compute.advection_impl=xla"])
     dense["all_kernel_launches"] = {k: n - before[k] for k, n in
@@ -1223,6 +1389,12 @@ def main() -> int:
                 f"train steps/s = samples/s (batch 1, S = {res['S']}, {res['optimizer']}, "
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
+
+    # the 5.625° device time a step, beside the earlier kernel's
+    device_ms = {f"forecast {k}": runs[k]["profile"]["device_ms_per_step"] for k in runs}
+    device_ms.update({f"train {k}": trains[k]["profile"]["device_ms_per_step"] for k in trains})
+    log("[device-ms] " + json.dumps({"grid": [NLAT, NLON], "device_ms_per_step": device_ms,
+                                     "earlier_device_ms_per_step": EARLIER_DEVICE_MS}))
 
     # the serving and training paths through the row-chunked kernels
     chunk_runs, chunk_trains = {}, {}
@@ -1312,10 +1484,18 @@ def main() -> int:
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                        "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
-                for extra in ("unbanded_ms", "banded_ms"):
+                for extra in ("unbanded_ms", "banded_ms", "chunk_ms"):
                     if extra in c:
                         rec[extra] = c[extra]
                 kernels.append(rec)
+    for c in rollout_checks:
+        kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
+                        "source": KERNEL_SOURCE, "replaces": REPLACES,
+                        "launches": runs[c["dtype"]]["launches_per_rollout"][0][0],
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                        "chunk_ms": c["chunk_ms"]})
     for c in gen_checks:
         if "ms" in c:
             name = "interp_bwd_gen" if c["derivative"] else "interp_gen"

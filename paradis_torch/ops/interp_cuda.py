@@ -2,7 +2,8 @@
 autograd pairing.
 
 ``interp_fwd_cuda`` (``csrc/interp_fwd.cu``) replaces the TPU kernel
-``paradis_tpu/ops/interp_pallas.py:_fwd_kernel``; ``interp_bwd_cuda``
+``paradis_tpu/ops/interp_pallas.py:_fwd_kernel`` (``interp_fwd_route`` says
+which of its two routes a field takes); ``interp_bwd_cuda``
 (``csrc/interp_bwd.cu``) replaces ``_bwd_kernel``; ``interp_band_fwd_cuda``
 (``csrc/interp_band_fwd.cu``) and ``interp_band_bwd_cuda``
 (``csrc/interp_band_bwd.cu``) replace ``_fwd_kernel_banded`` and
@@ -50,8 +51,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # pos_y, pos_x, out; the element count; R, C, mode.  The contraction kernels
 # (``ops/interp_mm.py``) take w, f, out, or field, py, px, g, d_field, d_py,
 # d_px; then B·V, P; then R, C, and vb, pb or the field's dtype; then cdt.
+# The route query of the forward takes R, C, mode, dtype and launches nothing.
 _SIGNATURES = {
     "interp_fwd": ("interp_fwd", 4, 2, 5),
+    "interp_fwd_route": ("interp_fwd", 0, 0, 4),
     "interp_bwd": ("interp_bwd", 7, 2, 6),
     "interp_band_fwd": ("interp_band_fwd", 4, 2, 10),
     "interp_band_bwd": ("interp_band_bwd", 7, 2, 11),
@@ -111,10 +114,29 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def interp_fwd_route(field: torch.Tensor, mode: str = "bicubic") -> str:
+    """The route ``interp_fwd_cuda`` takes for ``field`` [B, R, C, V] on its
+    CUDA device: ``"resident"`` where two slabs of a channel group's whole
+    R × C field fit in shared memory, else ``"window"`` (each tile's own row
+    window, the row-chunked forward's staging)."""
+    check_mode(mode)
+    if field.dim() != 4 or field.dtype not in _DTYPES or field.device.type != "cuda":
+        raise ValueError(f"expected a float32 or bfloat16 field [B,R,C,V] on a CUDA device; "
+                         f"got {field.dtype} {tuple(field.shape)} on {field.device}")
+    fn = _kernel("interp_fwd_route")
+    with torch.cuda.device(field.device):
+        route = fn(field.shape[1], field.shape[2], _MODES[mode], _DTYPES[field.dtype], None)
+    if route not in (0, 1):
+        raise RuntimeError(f"interp_fwd route query failed with CUDA error {-route}")
+    return ("resident", "window")[route]
+
+
 def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                     mode: str = "bicubic") -> torch.Tensor:
     """Launch the forward kernel: field [B, R, C, V] (fp32 or bf16), positions
-    [B, H, W, V] fp32, all contiguous on one CUDA device → [B, H, W, V]."""
+    [B, H, W, V] fp32, all contiguous on one CUDA device → [B, H, W, V].
+    Raises where the field takes the window route and one of its rows of one
+    channel does not fit the card's shared memory."""
     global launches
     _check(field, pix_y, pix_x, mode)
     B, R, C, V = field.shape
@@ -127,7 +149,8 @@ def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), out.data_ptr(),
                  B, H * W, R, C, V, _MODES[mode], _DTYPES[field.dtype], _stream(field.device))
     if err != 0:
-        raise RuntimeError(f"interp_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"interp_fwd kernel launch failed with CUDA error {err} "
+                           f"(a row of {C} columns may not fit in shared memory)")
     launches += 1
     return out
 

@@ -106,3 +106,20 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     out = interpolate(field, py, px, "bicubic")
     torch.testing.assert_close(out, interp_plain(field, py, px, "bicubic"), rtol=0, atol=0)
     assert interp_cuda.launches == before
+
+
+def test_route_query_rejects_cpu_fields_and_builds_nothing(monkeypatch):
+    """``interp_fwd_route`` answers only for a field on a CUDA device: a CPU
+    field, an unknown mode or a float64 field raise before any build."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(interp_cuda._build, "load", no_build)
+    monkeypatch.setattr(interp_cuda, "_fns", {})
+    field = torch.zeros(1, 36, 68, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_cuda.interp_fwd_route(field, "bicubic")
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_cuda.interp_fwd_route(field.double(), "bilinear")
+    with pytest.raises(ValueError, match="mode"):
+        interp_cuda.interp_fwd_route(field, "nearest")

@@ -261,6 +261,88 @@ def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
         assert ok, (name, err)
 
 
+# (B, R, C, V, H, W), positions and route of the unbanded forward's cases:
+# the 5.625° fields (bicubic and bilinear pads) and a tail take the resident
+# route, the 1.40625° field (132 × 260 rows and columns) the window route,
+# at full size with 1024-thread blocks and over 48 KB of shared memory a
+# block (which the row-chunked kernel, a library of its own, launches with
+# the same code right after), and with small V on smaller blocks; V 77 is no
+# multiple of a channel group, and "unaligned" hands the kernel a field view
+# 4 (fp32) or 2 (bf16) bytes past a 16-byte boundary
+FWD_CASES = {
+    "resident-wild": ((1, 36, 68, 768, 32, 64), "wild"),
+    "resident-departure": ((1, 34, 66, 768, 32, 64), "departure"),
+    "resident-outside": ((1, 36, 68, 64, 32, 64), "outside"),
+    "resident-nonfinite": ((1, 36, 68, 64, 32, 64), "nonfinite"),
+    "resident-v77-b2": ((2, 36, 68, 77, 32, 64), "departure"),
+    "resident-unaligned": ((1, 36, 68, 64, 32, 64), "wild"),
+    "resident-tail": ((1, 13, 22, 77, 9, 15), "wild"),
+    "window-departure": ((1, 132, 260, 768, 128, 256), "departure"),
+    "window-wild-v77-b2": ((2, 132, 260, 77, 32, 64), "wild"),
+    "window-outside": ((1, 132, 260, 8, 32, 64), "outside"),
+    "window-nonfinite-unaligned": ((1, 132, 260, 8, 64, 128), "nonfinite"),
+}
+
+
+def _fwd_inputs(shape, kind, dtype, seed, unaligned):
+    """Field and positions at ``shape``: ``wild`` anywhere up to 3 px outside
+    the field; ``departure`` within 3 px of the padded arrival point;
+    ``outside`` every tap outside the field (rows above it or columns beyond
+    it); ``nonfinite`` wild with a tenth each NaN, inf and -inf."""
+    B, R, C, V, H, W = shape
+    field, py, px = _inputs(B, R, C, V, H, W, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "departure":
+        ay = (np.arange(H, dtype=np.float32) + (R - H) // 2)[None, :, None, None]
+        ax = (np.arange(W, dtype=np.float32) + (C - W) // 2)[None, None, :, None]
+        py = (ay + rng.uniform(-3.0, 3.0, size=py.shape)).astype(np.float32)
+        px = (ax + rng.uniform(-3.0, 3.0, size=px.shape)).astype(np.float32)
+    elif kind == "outside":
+        above = rng.random(py.shape) < 0.5
+        py = np.where(above, rng.uniform(-40.0, -2.01, py.shape), py).astype(np.float32)
+        px = np.where(above, px, rng.uniform(C + 1.01, C + 40.0, px.shape)).astype(np.float32)
+    elif kind == "nonfinite":
+        pick = rng.random(py.shape)
+        bad = np.select([pick < 0.1, pick < 0.2, pick < 0.3], [np.nan, np.inf, -np.inf], 0.0)
+        axis = rng.random(py.shape) < 0.5
+        py = np.where((pick < 0.3) & axis, bad, py).astype(np.float32)
+        px = np.where((pick < 0.3) & ~axis, bad, px).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy(field).cuda().to(tdt)
+    if unaligned:
+        buf = torch.empty(f.numel() + 1, dtype=tdt, device="cuda")
+        f = buf[1:].view(f.shape).copy_(f)
+        assert f.is_contiguous() and f.data_ptr() % 16
+    return f, torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_fwd_kernel_matches_chunked_bitwise_and_plain_on_card(mode, dtype, case):
+    """The unbanded forward kernel takes the route the case names, launches
+    once, agrees with ``interp_plain`` (limits as above: the same fp32 sums in
+    another FMA order, one bf16 ulp for a bf16 result) and equals the
+    row-chunked kernel bitwise (the same float order per position); with
+    every tap outside the field, it is zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, kind = FWD_CASES[case]
+    f, y, x = _fwd_inputs(shape, kind, dtype, seed=len(case), unaligned="unaligned" in case)
+    assert interp_cuda.interp_fwd_route(f, mode) == case.split("-")[0]
+    before = interp_cuda.launches
+    out = interp_cuda.interp_fwd_cuda(f, y, x, mode)
+    torch.cuda.synchronize()
+    assert interp_cuda.launches == before + 1 and out.dtype == f.dtype
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    ok, err = _within(out, interp_plain(f, y, x, mode), 1e-5, rel)
+    assert ok, err
+    assert torch.equal(out, interp_cuda.interp_chunk_fwd_cuda(f, y, x, 8, mode))
+    if kind == "outside":
+        assert not out.any()
+
+
 @pytest.mark.gpu
 def test_chunk_kernels_refuse_a_chunk_that_does_not_fit():
     """The backward refuses a chunk of one channel larger than the card's
