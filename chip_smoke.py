@@ -22,7 +22,9 @@ Phases, each of which makes the script exit non-zero when it fails:
 4. hold the interpolation backward kernel against its plain backward at the
    same shapes (the cotangent a seeded normal in the field's dtype), plus a
    bilinear case with every position on an integer (where K′ is zero at the
-   kinks); time the kernel, the plain backward and the backward of
+   kinks), and, on d_py and d_px bitwise, against the row-chunked backward
+   (``rw = 8``; both launch one row-slab kernel); time the kernel, the
+   row-chunked kernel, the plain backward and the backward of
    ``F.grid_sample`` (``torch.autograd.grad``, a yardstick the port never
    calls), beside the backward's memory/compute bound;
 5. the row-banded pair at the 1.40625° shapes (field [1, 132, 260, 768]
@@ -65,9 +67,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
    step launches the banded forward 16 times (8, and 8 in the backward's
    replay), the banded backward 8 times and the unbanded kernels never.
-   ``[device-ms]`` prints the 5.625° forecast and train-step device ms a
-   step beside those this script measured with the direct-gather forward
-   kernel (``EARLIER_DEVICE_MS``);
+   The field, positions and cotangent of the 5.625° train steps' first-step
+   backward launches are recorded (``recording_bwd``) and, in
+   ``[kernel-bwd-train]``, the backward kernel is held on them against its
+   plain version and, on d_py and d_px bitwise, against the row-chunked
+   backward, and timed beside it, the backward of ``F.grid_sample``, the
+   plain version and the bound;
 8. the row-chunked pair (``[kernel-chunk]``) at the 5.625° shapes with
    ``rw = 8``, at the 1.40625° shapes with ``rw = 32`` and at an odd tail
    shape whose last chunk has 5 rows, float32 and bfloat16, on random
@@ -84,6 +89,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    5.625° (``rw = 8``) and at 1.40625° (``rw = 32``, no band, the train
    steps with gradient checkpointing), each launching the chunked kernels
    exactly as the unbanded ones above and no other interpolation kernel;
+   ``[device-ms]`` then prints the device ms a step of the forecasts and of
+   every train cell beside this script's earlier figures
+   (``EARLIER_DEVICE_MS``);
 10. the contraction kernels of the microbenchmark (``[kernel-mm]``):
     ``mm`` (float32 and bfloat16 operands, each variant's channel and
     position blocks), ``mmT`` and ``bwd_mm`` against their plain versions at
@@ -125,8 +133,13 @@ MAX_QUEUE_S = 0.25          # the longest spin time_ms queues its calls behind
 # device ms a 5.625° step that this script measured when the forward kernel
 # was a direct per-output gather from device memory (H100 80GB HBM3, 700 W;
 # PERF.md §5)
-EARLIER_DEVICE_MS = {"forecast float32": 17.01, "forecast bfloat16": 15.99,
-                     "train bfloat16": 73.63, "train float32": 91.87}
+# device ms a step measured by this script before the backward kernels'
+# redesign (PERF.md §5)
+EARLIER_DEVICE_MS = {"forecast float32": 16.86, "forecast bfloat16": 15.83,
+                     "train bfloat16": 73.94, "train float32": 91.68,
+                     "train bfloat16 128x256": 920.80, "train float32 128x256": 1262.86,
+                     "train-chunk bfloat16 32x64": 73.83,
+                     "train-chunk bfloat16 128x256": 923.35}
 KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
 BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
@@ -181,9 +194,10 @@ STEP_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
 # for a field and cotangent of unit spread.  d_py and d_px: float32 in both
 # dtypes, the same sums of 16 products (Σ|terms| up to ~30 at |g|, |f| ~ 5) in
 # another FMA order; measured ≤ 1.3e-5 on values up to 23.  d_field: each cell
-# sums the contributions of the up to ~16 positions that tap it, the kernel
-# with float32 atomics in an order that changes from run to run (reruns
-# differ by ~1e-6), the plain version with scatter_add; a bf16 d_field is
+# sums the contributions of the up to ~16 positions that tap it, the kernels
+# with float32 atomics (shared-memory ones in the unbanded and row-chunked
+# backward) in an order that changes from run to run (reruns differ by
+# ~1e-6), the plain version with scatter_add; a bf16 d_field is
 # that sum rounded, so it may land on the neighbouring bf16 value (≤ 2^-7 of
 # its magnitude), as in KERNEL_TOL.
 BWD_TOL = {
@@ -537,10 +551,12 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
     plain backward and against the unbanded kernel on the same positions;
     with ``chunk_rw``, the row-chunked backward (on positions clamped to
     ``depart_px`` when given), held against its plain version and the
-    unbanded kernel (d_py and d_px bitwise).  With ``timed``, its time beside
-    the plain backward's, ``F.grid_sample``'s backward, the unbanded
-    kernel's (and the banded kernel's where the band gate passes at
-    ``depart_px``) and the bound."""
+    unbanded kernel (d_py and d_px bitwise); else the unbanded backward, held
+    against its plain version and the row-chunked backward at ``CHUNK_RW``
+    (d_py and d_px bitwise).  With ``timed``, its time beside the plain
+    backward's, ``F.grid_sample``'s backward, the unbanded kernel's (or, for
+    the unbanded kernel, the row-chunked kernel's; and the banded kernel's
+    where the band gate passes at ``depart_px``) and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -574,6 +590,8 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
     refs = {"plain": plain()}
     if band_px is not None or chunk_rw:
         refs["unbanded"] = interp_bwd_cuda(field, py, px, g, mode)
+    else:
+        refs["chunk"] = interp_chunk_bwd_cuda(field, py, px, g, CHUNK_RW, mode)
     torch.cuda.synchronize()
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
            "integer_positions": integer, "ok": out[0].dtype == dtype}
@@ -583,6 +601,10 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
         res.update(chunk_rw=chunk_rw, depart_px=depart_px, bitwise_equal_unbanded_d_pos=bool(
             torch.equal(out[1], refs["unbanded"][1]) and torch.equal(out[2], refs["unbanded"][2])))
         res["ok"] = res["ok"] and res["bitwise_equal_unbanded_d_pos"]
+    elif band_px is None:
+        res["bitwise_equal_chunk_d_pos"] = bool(torch.equal(out[1], refs["chunk"][1])
+                                                and torch.equal(out[2], refs["chunk"][2]))
+        res["ok"] = res["ok"] and res["bitwise_equal_chunk_d_pos"]
     for ref_name, ref in refs.items():
         key = "" if ref_name == "plain" else f"{ref_name}_"
         res[f"{key}max_abs_err"] = res[f"{key}worst_err_over_limit"] = 0.0
@@ -604,6 +626,9 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
         if band_px is not None or chunk_rw:
             res["unbanded_ms"] = time_ms(lambda: interp_bwd_cuda(field, py, px, g, mode),
                                          iters=k_iters)
+        else:
+            res["chunk_ms"] = time_ms(
+                lambda: interp_chunk_bwd_cuda(field, py, px, g, CHUNK_RW, mode), iters=k_iters)
         if chunk_rw and spec is not None:
             res["banded_ms"] = time_ms(
                 lambda: interp_band_bwd_cuda(field, py, px, g, spec, mode), iters=k_iters)
@@ -617,6 +642,77 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
             lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True),
             iters=max(k_iters // 2, 10))
         res["bound_ms"], res["bound_by"] = bound_bwd(field, py, g, mode)
+    return res
+
+
+def check_train_bwd_kernel(dtype_name: str, captured: list) -> dict:
+    """The unbanded backward kernel on the inputs of the first train step's
+    launches (``recording_bwd``; the model's weights are seeded random, the
+    repo has no trained checkpoint): each launch held against the plain
+    backward within ``BWD_TOL`` and, on d_py and d_px bitwise, against the
+    row-chunked backward at ``CHUNK_RW``; the departure rows' distance from
+    their padded arrival row (p50, p99, max).  Times per launch, over the
+    step's launches in turn: the kernel, the row-chunked kernel, the backward
+    of ``F.grid_sample``, the plain version, and the mean bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from paradis_torch.ops.interp import interp_bwd_plain
+    from paradis_torch.ops.interp_cuda import interp_bwd_cuda, interp_chunk_bwd_cuda
+
+    captured = [tuple(t.cuda() for t in c[:4]) + (c[4],) for c in captured]
+    res = {"dtype": dtype_name, "launches": len(captured), "shape": None,
+           "weights": "seeded random (no trained checkpoint)", "ok": len(captured) > 0,
+           "max_abs_err": 0.0, "worst_err_over_limit": 0.0, "bitwise_equal_chunk_d_pos": True}
+    dys = []
+    for field, py, px, g, mode in captured:
+        B, R, C, V = field.shape
+        _, H, W, _ = py.shape
+        res["shape"], res["mode"], res["g_dtype"] = [B, R, C, V, H, W], mode, str(g.dtype)
+        out = interp_bwd_cuda(field, py, px, g, mode)
+        chunk = interp_chunk_bwd_cuda(field, py, px, g, CHUNK_RW, mode)
+        ref = interp_bwd_plain(field, py, px, g, mode)
+        res["bitwise_equal_chunk_d_pos"] = (res["bitwise_equal_chunk_d_pos"]
+                                            and bool(torch.equal(out[1], chunk[1]))
+                                            and bool(torch.equal(out[2], chunk[2])))
+        res["ok"] = res["ok"] and out[0].dtype == field.dtype
+        for name, o, r in zip(("d_field", "d_py", "d_px"), out, ref):
+            atol, rtol = BWD_TOL[dtype_name][name]
+            diff = (o.float() - r.float()).abs()
+            limit = atol + rtol * r.float().abs()
+            res["max_abs_err"] = max(res["max_abs_err"], float(diff.max()))
+            res["worst_err_over_limit"] = max(res["worst_err_over_limit"],
+                                              float((diff / limit).max()))
+            res["ok"] = (res["ok"] and bool((diff <= limit).all())
+                         and bool(torch.isfinite(o).all()))
+        ay = torch.arange(H, device=py.device, dtype=torch.float32).view(1, H, 1, 1) + (R - H) // 2
+        dys.append((py - ay).abs()[torch.isfinite(py)])
+    res["ok"] = res["ok"] and res["bitwise_equal_chunk_d_pos"]
+    res["row_displacement_px_p50_p99_max"] = sorted_quantiles(torch.cat(dys), (0.5, 0.99, 1.0))
+    n = len(captured)
+    res["ms"] = time_ms(lambda: [interp_bwd_cuda(*c) for c in captured], iters=20) / n
+    res["chunk_ms"] = time_ms(
+        lambda: [interp_chunk_bwd_cuda(f, y, x, g, CHUNK_RW, m) for f, y, x, g, m in captured],
+        iters=20) / n
+    lib = []
+    for field, py, px, g, mode in captured:
+        B, R, C, V = field.shape
+        _, H, W, _ = py.shape
+        img, grid = grid_sample_args(field, py, px, field.dtype)
+        img.requires_grad_()
+        grid.requires_grad_()
+        lib_out = F.grid_sample(img, grid, mode=mode, padding_mode="zeros", align_corners=True)
+        g_lib = g.permute(0, 3, 1, 2).reshape(B * V, 1, 1, H * W).to(field.dtype).contiguous()
+        lib.append((lib_out, img, grid, g_lib))
+    res["library_ms"] = time_ms(
+        lambda: [torch.autograd.grad(o, (i, gr), gl, retain_graph=True) for o, i, gr, gl in lib],
+        iters=10) / n
+    del lib
+    res["plain_ms"] = time_ms(lambda: [interp_bwd_plain(*c) for c in captured], iters=3,
+                              warmup=1) / n
+    bounds = [bound_bwd(f, y, g, m) for f, y, _, g, m in captured]
+    res["bound_ms"] = sum(b for b, _ in bounds) / n
+    res["bound_by"] = bounds[0][1]
     return res
 
 
@@ -1060,18 +1156,42 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
 
 
 def run_train(dtype_name: str, card: str, grid=(NLAT, NLON), overrides=TRAIN_OVERRIDES,
-              steps: int = TRAIN_STEPS, grad_tol=GRAD_TOL, chunk_rw: int = 0) -> dict:
+              steps: int = TRAIN_STEPS, grad_tol=GRAD_TOL, chunk_rw: int = 0,
+              capture: list | None = None) -> dict:
     """Full-width train steps on ``grid``: finiteness, loss decrease, launch
     counts and the first step's gradients through the kernels against the
     plain path.  Under ``compute.gradient_checkpointing`` the backward
     replays each layer's forward, so the forward kernel runs twice a layer.
-    ``chunk_rw`` sets ``PARADIS_INTERP_CHUNK`` for the run."""
+    ``chunk_rw`` sets ``PARADIS_INTERP_CHUNK`` for the run.  ``capture``, a
+    list, receives the inputs of the unbanded backward kernel's launches in
+    the first train step (the warm-up step, before any count is read)."""
     with interp_chunk_env(chunk_rw):
-        return _run_train(dtype_name, card, grid, overrides, steps, grad_tol, chunk_rw)
+        return _run_train(dtype_name, card, grid, overrides, steps, grad_tol, chunk_rw, capture)
+
+
+@contextlib.contextmanager
+def recording_bwd(store: list, n: int):
+    """``interp_cuda.interp_bwd_cuda`` wrapped for the block, as
+    ``recording_fwd`` wraps the forward: the field, positions, cotangent and
+    mode of its first ``n`` calls are kept in ``store`` on the host."""
+    from paradis_torch.ops import interp_cuda as ic
+
+    kernel = ic.interp_bwd_cuda
+
+    def recorded(field, pix_y, pix_x, g, mode="bicubic"):
+        if len(store) < n:
+            store.append((field.cpu(), pix_y.cpu(), pix_x.cpu(), g.cpu(), mode))
+        return kernel(field, pix_y, pix_x, g, mode)
+
+    ic.interp_bwd_cuda = recorded
+    try:
+        yield
+    finally:
+        ic.interp_bwd_cuda = kernel
 
 
 def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol,
-               chunk_rw: int) -> dict:
+               chunk_rw: int, capture: list | None) -> dict:
     import numpy as np
     import torch
 
@@ -1127,11 +1247,13 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     del grads
 
     losses, gnorms, counts, times = [], [], [], []
-    for _ in range(steps):
+    for i in range(steps):
         set_learning_rate(optimizer, lr_at(state.step))
         reset_counts()
         t0 = time.perf_counter()
-        metrics = train_step(state, batch, d["n_common"])
+        with (recording_bwd(capture, n_layers * S) if capture is not None and i == 0
+              else contextlib.nullcontext()):
+            metrics = train_step(state, batch, d["n_common"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts.append(launch_counts())
@@ -1375,12 +1497,13 @@ def main() -> int:
         f"{dense['profile']['device_ms_per_step']} ms/step, peak {dense['peak_mem_gb']:.2f} GB "
         f"on {card}")
 
-    trains, hr_trains = {}, {}
+    trains, hr_trains, first_bwd = {}, {}, {}
     for grid, overrides, steps, tol, store in (
             ((NLAT, NLON), TRAIN_OVERRIDES, TRAIN_STEPS, GRAD_TOL, trains),
             (HR, HR_TRAIN_OVERRIDES, HR_TRAIN_STEPS, HR_GRAD_TOL, hr_trains)):
         for dtype_name in ("bfloat16", "float32"):
-            res = run_train(dtype_name, card, grid, overrides, steps, tol)
+            capture = first_bwd.setdefault(dtype_name, []) if store is trains else None
+            res = run_train(dtype_name, card, grid, overrides, steps, tol, capture=capture)
             log("[train] " + json.dumps(res))
             if not res["ok"]:
                 raise SystemExit(f"train steps failed their checks: {res}")
@@ -1390,11 +1513,17 @@ def main() -> int:
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
 
-    # the 5.625° device time a step, beside the earlier kernel's
-    device_ms = {f"forecast {k}": runs[k]["profile"]["device_ms_per_step"] for k in runs}
-    device_ms.update({f"train {k}": trains[k]["profile"]["device_ms_per_step"] for k in trains})
-    log("[device-ms] " + json.dumps({"grid": [NLAT, NLON], "device_ms_per_step": device_ms,
-                                     "earlier_device_ms_per_step": EARLIER_DEVICE_MS}))
+    # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
+    train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
+                        for dtype_name in ("bfloat16", "float32")]
+    for c in train_bwd_checks:
+        log("[kernel-bwd-train] " + json.dumps(c))
+    bad = [c for c in train_bwd_checks
+           if not c["ok"] or c["launches"] != trains[c["dtype"]]["layers"]]
+    if bad:
+        raise SystemExit(f"backward kernel disagrees with its plain version or the row-chunked "
+                         f"kernel on the train step's inputs: {bad}")
+    torch.cuda.empty_cache()
 
     # the serving and training paths through the row-chunked kernels
     chunk_runs, chunk_trains = {}, {}
@@ -1419,6 +1548,17 @@ def main() -> int:
         log(f"[train-chunk] {grid[0]}x{grid[1]} bfloat16 rw {rw}: "
             f"{res['train_steps_per_s']:.2f} train steps/s (batch 1, checkpointing "
             f"{res['gradient_checkpointing']}) on {card}")
+
+    # the device time a step of the forecasts and train steps, beside this
+    # script's earlier figures (EARLIER_DEVICE_MS)
+    device_ms = {f"forecast {k}": runs[k]["profile"]["device_ms_per_step"] for k in runs}
+    device_ms.update({f"train {k}": trains[k]["profile"]["device_ms_per_step"] for k in trains})
+    device_ms.update({f"train {k} {HR[0]}x{HR[1]}": hr_trains[k]["profile"]["device_ms_per_step"]
+                      for k in hr_trains})
+    device_ms.update({f"train-chunk bfloat16 {g[0]}x{g[1]}": r["profile"]["device_ms_per_step"]
+                      for g, r in chunk_trains.items()})
+    log("[device-ms] " + json.dumps({"device_ms_per_step": device_ms,
+                                     "earlier_device_ms_per_step": EARLIER_DEVICE_MS}))
 
     # the microbenchmark, the main path of the weight-generation and the
     # contraction kernels
@@ -1492,6 +1632,14 @@ def main() -> int:
         kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,
                         "launches": runs[c["dtype"]]["launches_per_rollout"][0][0],
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                        "chunk_ms": c["chunk_ms"]})
+    for c in train_bwd_checks:
+        kernels.append({"name": f"interp_bwd[{c['mode']},{c['dtype']},train]", "route": "cuda",
+                        "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+                        "launches": trains[c["dtype"]]["launches_per_step"][0][1],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],

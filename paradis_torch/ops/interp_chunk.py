@@ -5,12 +5,11 @@ Port of the row chunking of ``paradis_tpu/ops/interp_pallas.py``
 Pallas kernels zero-pad the field's rows to a multiple of ``rw``
 (``_pad_rows``) and contract each ``rw``-row chunk that holds a tap of the
 position block; padded rows give zero taps, so chunking changes which rows
-are visited, not the function.  The CUDA kernels turn the chunk into a row
-window the data chooses: in ``csrc/interp_chunk_bwd.cu`` a block of
-positions stages, one after another, the ``rw``-row chunks that meet the
-rows its taps touch; ``csrc/interp_chunk_fwd.cu`` stages exactly those rows,
-whatever ``rw``, in as few slabs as shared memory allows.  Each keeps its
-positions' sums across what it stages.
+are visited, not the function.  The CUDA kernels do not follow ``rw``:
+``csrc/interp_chunk_fwd.cu`` stages the row window the data chooses for a
+block of positions, in as few slabs as shared memory allows, and keeps its
+positions' sums across them; ``csrc/interp_chunk_bwd.cu`` is the unchunked
+backward's row-slab kernel, each block owning a slab of d_field's rows.
 
 Chunking is opt-in, as in the JAX package: ``chunk_rows`` takes an explicit
 size, then ``PARADIS_INTERP_CHUNK``, and defaults to 0 (unchunked).  A band

@@ -4,7 +4,8 @@ autograd pairing.
 ``interp_fwd_cuda`` (``csrc/interp_fwd.cu``) replaces the TPU kernel
 ``paradis_tpu/ops/interp_pallas.py:_fwd_kernel`` (``interp_fwd_route`` says
 which of its two routes a field takes); ``interp_bwd_cuda``
-(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel``; ``interp_band_fwd_cuda``
+(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel`` (with the row-chunked
+backward, it launches the row-slab backward of ``csrc/interp_stage_bwd.cuh``); ``interp_band_fwd_cuda``
 (``csrc/interp_band_fwd.cu``) and ``interp_band_bwd_cuda``
 (``csrc/interp_band_bwd.cu``) replace ``_fwd_kernel_banded`` and
 ``_bwd_kernel_banded``; ``interp_chunk_fwd_cuda`` (``csrc/interp_chunk_fwd.cu``)
@@ -45,7 +46,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The C entry point ``paradis_<name>`` of each kernel: its source in
 # ``csrc/``, then its count of pointers, of 64-bit integers and of ints before
 # the stream.  A forward takes field, pos_y, pos_x, out; a backward field,
-# pos_y, pos_x, g, d_field, d_py, d_px; then B, P; then R, C, V, for a banded
+# pos_y, pos_x, g, d_field, d_py, d_px (the unbanded and row-chunked ones also
+# their span scratch, ``_bwd_outputs``); then B, P; then R, C, V, for a banded
 # kernel W, rpb, band_rows, halo_lo, pad, for a chunked one rw; then mode,
 # dtype, and for a backward g's dtype.  The weight-generation kernels take
 # pos_y, pos_x, out; the element count; R, C, mode.  The contraction kernels
@@ -55,11 +57,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "interp_fwd": ("interp_fwd", 4, 2, 5),
     "interp_fwd_route": ("interp_fwd", 0, 0, 4),
-    "interp_bwd": ("interp_bwd", 7, 2, 6),
+    "interp_bwd": ("interp_bwd", 8, 2, 6),
     "interp_band_fwd": ("interp_band_fwd", 4, 2, 10),
     "interp_band_bwd": ("interp_band_bwd", 7, 2, 11),
     "interp_chunk_fwd": ("interp_chunk_fwd", 4, 2, 6),
-    "interp_chunk_bwd": ("interp_chunk_bwd", 7, 2, 7),
+    "interp_chunk_bwd": ("interp_chunk_bwd", 8, 2, 7),
     "interp_gen": ("interp_gen", 3, 1, 3),
     "interp_bwd_gen": ("interp_gen", 3, 1, 3),
     "interp_mm": ("interp_mm", 3, 2, 5),
@@ -155,29 +157,51 @@ def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
     return out
 
 
+# positions a span of the backward's pre-pass summarises: ``kSpanPos`` of
+# ``csrc/interp_stage_bwd.cuh``, whose ``span_ints`` sizes the scratch the
+# same way (change both together)
+_SPAN_POSITIONS = 32
+
+
+def _bwd_outputs(field: torch.Tensor, H: int, W: int):
+    """``(d_field, d_py, d_px, span)`` of the unbanded and row-chunked
+    backward kernels, uninitialised: those kernels write every element,
+    d_field in the field's dtype.  ``span`` is their scratch, int32 [B,
+    ceil(V / 2), ceil(H·W / 32), 2]: the first and last head row of each
+    chunk of 32 positions of each channel pair."""
+    B, R, C, V = field.shape
+    d_field = torch.empty((B, R, C, V), dtype=field.dtype, device=field.device)
+    d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
+    span = torch.empty((B, (V + 1) // 2, -(-H * W // _SPAN_POSITIONS), 2), dtype=torch.int32,
+                       device=field.device)
+    return d_field, d_py, torch.empty_like(d_py), span
+
+
 def interp_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                     g: torch.Tensor, mode: str = "bicubic"):
     """Launch the backward kernel for the output cotangent ``g`` [B, H, W, V]
     (fp32 or bf16): ``(d_field, d_py, d_px)``, d_field in the field's dtype,
-    the position gradients in float32.  Arguments as ``interp_fwd_cuda``."""
+    the position gradients in float32.  Arguments as ``interp_fwd_cuda``.
+    Raises where a slab of one field row of one channel (its accumulator and
+    the taps' halo) does not fit the card's shared memory."""
     global bwd_launches
     _check(field, pix_y, pix_x, mode, g=g)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field = torch.zeros((B, R, C, V), dtype=torch.float32, device=field.device)
-    d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
-    d_px = torch.empty_like(d_py)
+    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
     if d_py.numel() == 0:
-        return d_field.to(field.dtype), d_py, d_px
+        return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), B, H * W, R, C, V,
-                 _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype], _stream(field.device))
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
+                 H * W, R, C, V, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 _stream(field.device))
     if err != 0:
-        raise RuntimeError(f"interp_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"interp_bwd kernel launch failed with CUDA error {err} "
+                           f"(a row of {C} columns may not fit in shared memory)")
     bwd_launches += 1
-    return d_field.to(field.dtype), d_py, d_px
+    return d_field, d_py, d_px
 
 
 def _check_spec(field: torch.Tensor, pix_y: torch.Tensor, spec) -> tuple[int, ...]:
@@ -268,28 +292,27 @@ def interp_chunk_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch
 def interp_chunk_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                           g: torch.Tensor, rw: int, mode: str = "bicubic"):
     """Launch the row-chunked backward kernel: ``(d_field, d_py, d_px)`` as
-    ``interp_bwd_cuda``, over chunks of ``rw`` rows."""
+    ``interp_bwd_cuda``, plus ``rw`` rows a chunk (checked; the kernel is
+    ``interp_bwd_cuda``'s, whatever ``rw``).  Raises as ``interp_bwd_cuda``."""
     global chunk_bwd_launches
     _check(field, pix_y, pix_x, mode, g=g)
     check_rw(rw)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field = torch.zeros((B, R, C, V), dtype=torch.float32, device=field.device)
-    d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
-    d_px = torch.empty_like(d_py)
+    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
     if d_py.numel() == 0:
-        return d_field.to(field.dtype), d_py, d_px
+        return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_chunk_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), B, H * W, R, C, V,
-                 rw, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
+                 H * W, R, C, V, rw, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
                  _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_chunk_bwd kernel launch failed with CUDA error {err} "
-                           f"(a chunk of {rw} rows x {C} columns may not fit in shared memory)")
+                           f"(a row of {C} columns may not fit in shared memory)")
     chunk_bwd_launches += 1
-    return d_field.to(field.dtype), d_py, d_px
+    return d_field, d_py, d_px
 
 
 class Interp(torch.autograd.Function):

@@ -343,29 +343,100 @@ def test_fwd_kernel_matches_chunked_bitwise_and_plain_on_card(mode, dtype, case)
         assert not out.any()
 
 
+# The backward's cases, on the fields and positions of FWD_CASES' kinds
+# (``_fwd_inputs``): the 5.625° field, whose slabs each hold the rows of
+# every position of their channel group; a tall field (132 rows, the
+# 1.40625° grid) with few channels, so a slab is a few rows and an item's
+# taps often straddle two or three slabs; V 77 (no multiple of a channel
+# group), B 2, and a field view off its 16-byte (and 8-byte) boundary
+BWD_CASES = {
+    "flagship-wild": ((1, 36, 68, 768, 32, 64), "wild"),
+    "flagship-departure": ((1, 36, 68, 768, 32, 64), "departure"),
+    "outside": ((1, 36, 68, 64, 32, 64), "outside"),
+    "nonfinite": ((1, 36, 68, 64, 32, 64), "nonfinite"),
+    "v77-b2": ((2, 36, 68, 77, 32, 64), "departure"),
+    "unaligned": ((1, 36, 68, 64, 32, 64), "wild"),
+    "tall-departure": ((1, 132, 260, 8, 128, 256), "departure"),
+    "tall-wild-v77-b2": ((2, 132, 260, 77, 32, 64), "wild"),
+    "tall-nonfinite-unaligned": ((1, 132, 260, 8, 64, 128), "nonfinite"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_bwd_kernels_match_each_other_bitwise_and_plain_on_card(mode, dtype, case):
+    """The unbanded and the row-chunked backward (one kernel, two entry
+    points) each launch once, agree with ``interp_bwd_plain`` within
+    chip_smoke.py's ``BWD_TOL`` (the same fp32 sums in another order,
+    d_field in the shared-memory atomics' order, one bf16 ulp for a bf16
+    d_field) and with each other bitwise on d_py and d_px (one thread sums an
+    item whole, in one order), whatever ``rw``; with every tap outside the
+    field, all three outputs are zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, kind = BWD_CASES[case]
+    f, y, x = _fwd_inputs(shape, kind, dtype, seed=len(case) + 40,
+                          unaligned="unaligned" in case)
+    g = torch.from_numpy(np.random.default_rng(len(case)).normal(size=tuple(y.shape))
+                         .astype(np.float32)).cuda().to(f.dtype)
+    n0 = (interp_cuda.bwd_launches, interp_cuda.chunk_bwd_launches)
+    out = interp_cuda.interp_bwd_cuda(f, y, x, g, mode)
+    chunked = [interp_cuda.interp_chunk_bwd_cuda(f, y, x, g, rw, mode) for rw in (8, 32)]
+    torch.cuda.synchronize()
+    assert (interp_cuda.bwd_launches, interp_cuda.chunk_bwd_launches) == (n0[0] + 1, n0[1] + 2)
+    assert out[0].dtype == f.dtype and out[1].dtype == out[2].dtype == torch.float32
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    ref = interp_bwd_plain(f, y, x, g, mode)
+    for grads in (out, *chunked):
+        for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
+            ok, err = _within(o, r, *tol)
+            assert ok, (name, err)
+            assert torch.isfinite(o).all(), name
+        assert torch.equal(grads[1], out[1]) and torch.equal(grads[2], out[2])
+    if kind == "outside":
+        assert not out[0].any() and not out[1].any() and not out[2].any()
+
+
 @pytest.mark.gpu
 def test_chunk_kernels_refuse_a_chunk_that_does_not_fit():
-    """The backward refuses a chunk of one channel larger than the card's
-    shared memory (64 rows x 4096 fp32 columns, 1 MB), which the forward now
-    takes, whatever ``rw``; the forward refuses only a field whose one row of
-    one channel does not fit (65536 fp32 columns, 256 KB).  A refusal raises
-    and counts no launch; it does not run the unchunked kernel."""
+    """Neither chunked kernel refuses a chunk of one channel larger than the
+    card's shared memory (64 rows x 4096 fp32 columns, 1 MB), whatever
+    ``rw``: each takes that field and equals its unchunked kernel (the
+    backward's d_py and d_px bitwise).  Each refuses only a field whose one
+    row of one channel does not fit (65536 fp32 columns, 256 KB: for the
+    backward, with its float32 accumulator and the taps' halo rows).  A
+    refusal raises and counts no launch; it does not run the unchunked
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     f = torch.randn(1, 64, 4096, 1, device="cuda")
     y = torch.full((1, 2, 2, 1), 3.5, device="cuda")
-    n0 = (interp_cuda.launches, interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
+    n0 = (interp_cuda.launches, interp_cuda.chunk_launches)
     out = interp_cuda.interp_chunk_fwd_cuda(f, y, y, 64, "bicubic")
     torch.cuda.synchronize()
     assert (interp_cuda.launches, interp_cuda.chunk_launches) == (n0[0], n0[1] + 1)
     assert torch.equal(out, interp_cuda.interp_fwd_cuda(f, y, y, "bicubic"))
-    n0 = (interp_cuda.launches, interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
-    with pytest.raises(RuntimeError, match="interp_chunk_bwd"):
-        interp_cuda.interp_chunk_bwd_cuda(f, y, y, y, 64, "bicubic")
+    n0 = (interp_cuda.bwd_launches, interp_cuda.chunk_bwd_launches)
+    grads = interp_cuda.interp_chunk_bwd_cuda(f, y, y, y, 64, "bicubic")
+    torch.cuda.synchronize()
+    assert (interp_cuda.bwd_launches, interp_cuda.chunk_bwd_launches) == (n0[0], n0[1] + 1)
+    unchunked = interp_cuda.interp_bwd_cuda(f, y, y, y, "bicubic")
+    assert torch.equal(grads[1], unchunked[1]) and torch.equal(grads[2], unchunked[2])
+    ok, err = _within(grads[0], unchunked[0], 2e-5, 1e-5)
+    assert ok, err
+    n0 = (interp_cuda.launches, interp_cuda.bwd_launches, interp_cuda.chunk_launches,
+          interp_cuda.chunk_bwd_launches)
     wide = torch.zeros(1, 2, 65536, 1, device="cuda")
     with pytest.raises(RuntimeError, match="interp_chunk_fwd"):
         interp_cuda.interp_chunk_fwd_cuda(wide, y, y, 1, "bicubic")
-    assert (interp_cuda.launches, interp_cuda.chunk_launches,
+    with pytest.raises(RuntimeError, match="interp_chunk_bwd"):
+        interp_cuda.interp_chunk_bwd_cuda(wide, y, y, y, 1, "bicubic")
+    with pytest.raises(RuntimeError, match="interp_bwd"):
+        interp_cuda.interp_bwd_cuda(wide, y, y, y, "bicubic")
+    assert (interp_cuda.launches, interp_cuda.bwd_launches, interp_cuda.chunk_launches,
             interp_cuda.chunk_bwd_launches) == n0
 
 
