@@ -32,9 +32,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    as above, clamped to the bound ``compute.interp_band_rad=0.3`` gives on
    that grid, 12.2 px), float32 and bfloat16, plus an odd tail shape where
    the band gate is on: forward and backward held against the banded plain
-   versions and against the unbanded kernels on the same clamped positions;
+   versions and against the unbanded kernels on the same clamped positions
+   (the forward, d_py and d_px bitwise: both launch the same kernels, the
+   banded ones with a band filter that removes no tap under the clamp);
    timed beside the unbanded kernel, the plain version, ``F.grid_sample``
-   (forward and backward) and the bound;
+   (forward and backward) and the bound.  Then ``[kernel-band-outside]``,
+   untimed, at the same shapes on rows not clamped (30% pushed 5–20 px
+   beyond the bound, some NaN and inf): the banded pair against its plain
+   versions, unlike the unbanded kernels where a tap leaves its band and
+   bitwise equal to them where none does, zero where no tap row is kept;
 6. the serving path: the full-width flagship ``Paradis`` (latent 1024, 768
    velocity vectors, 8 layers, bicubic, fast departure trig) built from
    ``configs/default.yaml`` with seeded random weights, runs a 40-step
@@ -130,16 +136,14 @@ PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bfloat16 on the tensor cores
 SPIN_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep cycles a second, at or above the SM clock
 MAX_QUEUE_S = 0.25          # the longest spin time_ms queues its calls behind
-# device ms a 5.625° step that this script measured when the forward kernel
-# was a direct per-output gather from device memory (H100 80GB HBM3, 700 W;
-# PERF.md §5)
-# device ms a step measured by this script before the backward kernels'
-# redesign (PERF.md §5)
-EARLIER_DEVICE_MS = {"forecast float32": 16.86, "forecast bfloat16": 15.83,
-                     "train bfloat16": 73.94, "train float32": 91.68,
-                     "train bfloat16 128x256": 920.80, "train float32 128x256": 1262.86,
-                     "train-chunk bfloat16 32x64": 73.83,
-                     "train-chunk bfloat16 128x256": 923.35}
+# device ms a step that this script measured while the banded kernels staged
+# their own bands (H100 80GB HBM3, 700 W; PERF.md §5)
+EARLIER_DEVICE_MS = {"forecast float32": 16.84, "forecast bfloat16": 15.95,
+                     "forecast float32 128x256": 243.01, "forecast bfloat16 128x256": 215.48,
+                     "train bfloat16": 73.24, "train float32": 91.37,
+                     "train bfloat16 128x256": 922.76, "train float32 128x256": 1261.51,
+                     "train-chunk bfloat16 32x64": 74.74,
+                     "train-chunk bfloat16 128x256": 906.53}
 KERNEL_SOURCE = "paradis_torch/csrc/interp_fwd.cu"
 REPLACES = "paradis_tpu/ops/interp_pallas.py:172"
 BWD_SOURCE = "paradis_torch/csrc/interp_bwd.cu"
@@ -359,7 +363,8 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     ``depart_px`` when given), held against its plain version and, bitwise,
     against the unbanded kernel; else the unbanded kernel, held against its
     plain version and, bitwise, against the row-chunked kernel at
-    ``CHUNK_RW``, with the route it takes.  With ``timed``, the kernel's time
+    ``CHUNK_RW``, with the route it takes.  The banded and chunked kernels
+    are held bitwise against the unbanded one.  With ``timed``, the kernel's time
     beside the plain version's, ``F.grid_sample``'s, the unbanded kernel's
     (or, for the unbanded kernel, the row-chunked kernel's; and, for a
     chunked case where the band gate passes at ``depart_px``, the banded
@@ -402,10 +407,11 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     if band_px is not None:
         res.update(band_px=band_px, band_plan=list(spec))
     if chunk_rw:
-        res.update(chunk_rw=chunk_rw, depart_px=depart_px,
-                   bitwise_equal_unbanded=bool(torch.equal(out, refs["unbanded"])))
+        res.update(chunk_rw=chunk_rw, depart_px=depart_px)
+    if band_px is not None or chunk_rw:
+        res["bitwise_equal_unbanded"] = bool(torch.equal(out, refs["unbanded"]))
         res["ok"] = res["ok"] and res["bitwise_equal_unbanded"]
-    elif band_px is None:
+    else:
         res.update(route=interp_fwd_route(field, mode),
                    bitwise_equal_chunk=bool(torch.equal(out, refs["chunk"])))
         res["ok"] = res["ok"] and res["bitwise_equal_chunk"]
@@ -551,9 +557,9 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
     plain backward and against the unbanded kernel on the same positions;
     with ``chunk_rw``, the row-chunked backward (on positions clamped to
     ``depart_px`` when given), held against its plain version and the
-    unbanded kernel (d_py and d_px bitwise); else the unbanded backward, held
-    against its plain version and the row-chunked backward at ``CHUNK_RW``
-    (d_py and d_px bitwise).  With ``timed``, its time beside the plain
+    unbanded kernel (d_py and d_px bitwise, as for the banded backward); else
+    the unbanded backward, held against its plain version and the row-chunked
+    backward at ``CHUNK_RW`` (d_py and d_px bitwise).  With ``timed``, its time beside the plain
     backward's, ``F.grid_sample``'s backward, the unbanded kernel's (or, for
     the unbanded kernel, the row-chunked kernel's; and the banded kernel's
     where the band gate passes at ``depart_px``) and the bound."""
@@ -598,10 +604,12 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
     if band_px is not None:
         res.update(band_px=band_px, band_plan=list(spec))
     if chunk_rw:
-        res.update(chunk_rw=chunk_rw, depart_px=depart_px, bitwise_equal_unbanded_d_pos=bool(
-            torch.equal(out[1], refs["unbanded"][1]) and torch.equal(out[2], refs["unbanded"][2])))
+        res.update(chunk_rw=chunk_rw, depart_px=depart_px)
+    if band_px is not None or chunk_rw:
+        res["bitwise_equal_unbanded_d_pos"] = bool(torch.equal(out[1], refs["unbanded"][1])
+                                                   and torch.equal(out[2], refs["unbanded"][2]))
         res["ok"] = res["ok"] and res["bitwise_equal_unbanded_d_pos"]
-    elif band_px is None:
+    else:
         res["bitwise_equal_chunk_d_pos"] = bool(torch.equal(out[1], refs["chunk"][1])
                                                 and torch.equal(out[2], refs["chunk"][2]))
         res["ok"] = res["ok"] and res["bitwise_equal_chunk_d_pos"]
@@ -642,6 +650,95 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
             lambda: torch.autograd.grad(lib_out, (img, grid), g_lib, retain_graph=True),
             iters=max(k_iters // 2, 10))
         res["bound_ms"], res["bound_by"] = bound_bwd(field, py, g, mode)
+    return res
+
+
+def band_taps(py, spec, R: int, mode: str):
+    """``(kept, cut)`` of each (position, channel): whether any of its tap
+    rows lies in its band (and so in the field), and whether any lies in the
+    field but outside its band.  A non-finite row has neither."""
+    import torch
+
+    from paradis_torch.ops.interp_band import band_rows_window
+
+    _, H, W, _ = py.shape
+    lo, hi = (t.view(1, H, W, 1) for t in band_rows_window(spec, R, H, W, py.device))
+    first, n = (-1, 4) if mode == "bicubic" else (0, 2)
+    kept = torch.zeros_like(py, dtype=torch.bool)
+    cut = torch.zeros_like(kept)
+    for k in range(n):
+        r = torch.floor(py) + (first + k)
+        in_band = (r >= lo) & (r < hi)
+        kept |= in_band
+        cut |= (r >= 0) & (r <= R - 1) & ~in_band
+    return kept, cut
+
+
+def check_band_outside(mode: str, dtype_name: str, shape, bound: float) -> dict:
+    """The row-banded pair on rows that are not clamped: ``band_inputs``'
+    rows, 30% of them pushed 5–20 px further out, so that taps leave their
+    band (inside the field and beyond it); 1% of the rows NaN, 1% inf, 1% of
+    the columns -inf.  Held against the banded plain versions (``KERNEL_TOL``,
+    ``BWD_TOL``); against the unbanded kernels, unequal on the items with a
+    tap in the field outside its band (``cut``) and bitwise equal elsewhere
+    (the forward, d_py and d_px); out, d_py and d_px exactly zero where no
+    tap row is kept."""
+    import torch
+
+    from paradis_torch.ops.interp_band import interp_band_bwd_plain, interp_band_plain
+    from paradis_torch.ops.interp_cuda import (interp_band_bwd_cuda, interp_band_fwd_cuda,
+                                               interp_bwd_cuda, interp_fwd_cuda)
+
+    dtype = getattr(torch, dtype_name)
+    B, R, C, V, H, W = shape
+    field, py, px = interp_inputs(B, R, C, V, H, W, dtype, seed=len(mode) + V + 2)
+    py, spec = band_inputs(field, py, bound, mode)
+    gen = torch.Generator(device="cuda").manual_seed(V + 3)
+    arr = (torch.arange(H, dtype=torch.float32, device="cuda").view(1, H, 1, 1)
+           + (R - H) // 2)
+    dy = py - arr
+    push = torch.rand(py.shape, generator=gen, device="cuda") < 0.3
+    far = 5.0 + 15.0 * torch.rand(py.shape, generator=gen, device="cuda")
+    py = arr + torch.where(push, dy + torch.sign(dy) * far, dy)
+    pick = torch.rand(py.shape, generator=gen, device="cuda")
+    py = torch.where(pick < 0.01, float("nan"), py)
+    py = torch.where((pick >= 0.01) & (pick < 0.02), float("inf"), py).contiguous()
+    px = torch.where((pick >= 0.02) & (pick < 0.03), float("-inf"), px).contiguous()
+    g = torch.randn(py.shape, generator=gen, device="cuda").to(dtype)
+    out = interp_band_fwd_cuda(field, py, px, spec, mode)
+    grads = interp_band_bwd_cuda(field, py, px, g, spec, mode)
+    unb_out = interp_fwd_cuda(field, py, px, mode)
+    unb = interp_bwd_cuda(field, py, px, g, mode)
+    kept, cut = band_taps(py, spec, R, mode)
+    no_tap = ~kept | ~torch.isfinite(px)
+    res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W], "band_px": bound,
+           "band_plan": list(spec), "share_cut": float(cut.float().mean()),
+           "share_no_kept_tap": float(no_tap.float().mean()),
+           "share_in_field_none_kept": float((~kept & cut).float().mean()),
+           "ok": bool(cut.any()) and bool((~kept & cut).any()) and bool((~cut).any())
+           and out.dtype == dtype and grads[0].dtype == dtype}
+    for name, o, r, (atol, rtol) in (
+            ("out", out, interp_band_plain(field, py, px, spec, mode), KERNEL_TOL[dtype_name]),
+            *((n, o, r, BWD_TOL[dtype_name][n]) for n, o, r in zip(
+                ("d_field", "d_py", "d_px"), grads,
+                interp_band_bwd_plain(field, py, px, g, spec, mode)))):
+        diff = (o.float() - r.float()).abs()
+        limit = atol + rtol * r.float().abs()
+        res[f"{name}_max_abs_err"] = float(diff.max())
+        res[f"{name}_worst_err_over_limit"] = float((diff / limit).max())
+        res["ok"] = res["ok"] and bool((diff <= limit).all()) and bool(torch.isfinite(o).all())
+    res["differs_from_unbanded_where_cut"] = (
+        bool((out != unb_out)[cut].any())
+        and bool(((grads[1] != unb[1]) | (grads[2] != unb[2]))[cut].any()))
+    uncut = ~cut
+    res["bitwise_equal_unbanded_where_uncut"] = (
+        bool(torch.equal(out[uncut], unb_out[uncut]))
+        and bool(torch.equal(grads[1][uncut], unb[1][uncut]))
+        and bool(torch.equal(grads[2][uncut], unb[2][uncut])))
+    res["zero_where_no_kept_tap"] = not (bool(out[no_tap].any()) or bool(grads[1][no_tap].any())
+                                         or bool(grads[2][no_tap].any()))
+    res["ok"] = (res["ok"] and res["differs_from_unbanded_where_cut"]
+                 and res["bitwise_equal_unbanded_where_uncut"] and res["zero_where_no_kept_tap"])
     return res
 
 
@@ -1396,6 +1493,19 @@ def main() -> int:
     if bad:
         raise SystemExit(f"banded kernel disagrees with its plain version or the unbanded "
                          f"kernel: {bad}")
+    # the same shapes on rows that are not clamped: taps leave their band
+    outside_checks = [check_band_outside(mode, dtype_name, shape, bound)
+                      for dtype_name in ("float32", "bfloat16")
+                      for mode, shape, bound in (("bicubic", hr, hr_px), ("bilinear", hr_bl, hr_px),
+                                                 ("bicubic", band_tail["bicubic"], 1.5),
+                                                 ("bilinear", band_tail["bilinear"], 1.5))]
+    for c in outside_checks:
+        log("[kernel-band-outside] " + json.dumps(c))
+    bad = [c for c in outside_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"banded kernel on unclamped rows disagrees with its plain version, "
+                         f"or with the unbanded kernel where no tap leaves its band: {bad}")
+    torch.cuda.empty_cache()
 
     # the row-chunked pair at the shapes of the two chunked paths, on random
     # positions and on departure-like ones (clamped to the bound
@@ -1552,6 +1662,8 @@ def main() -> int:
     # the device time a step of the forecasts and train steps, beside this
     # script's earlier figures (EARLIER_DEVICE_MS)
     device_ms = {f"forecast {k}": runs[k]["profile"]["device_ms_per_step"] for k in runs}
+    device_ms.update({f"forecast {k} {HR[0]}x{HR[1]}": hr_runs[k]["profile"]["device_ms_per_step"]
+                      for k in hr_runs})
     device_ms.update({f"train {k}": trains[k]["profile"]["device_ms_per_step"] for k in trains})
     device_ms.update({f"train {k} {HR[0]}x{HR[1]}": hr_trains[k]["profile"]["device_ms_per_step"]
                       for k in hr_trains})

@@ -1,7 +1,7 @@
 // Staging a field's channel groups in shared memory, and the gather over a
-// staged slab; shared by the forward kernels interp_fwd.cu and
-// interp_chunk_fwd.cu, so that both sum every position's taps in one float
-// order and give the same bits.
+// staged slab; shared by the forward kernels interp_fwd.cu,
+// interp_chunk_fwd.cu and interp_band_fwd.cu, so that all three sum every
+// position's taps in one float order and give the same bits.
 //
 //   out[b,p,v] = sum_r K(py - r) * sum_c K(px - c) * f[b,r,c,v]
 //
@@ -12,6 +12,15 @@
 // in increasing order, carried across slabs in increasing order.  Taps
 // outside [0,R) x [0,C) are dropped and a non-finite position has no taps,
 // per position.
+//
+// The band filter (NoBand, Band below) is a compile-time policy of the
+// window kernel and of the backward of interp_stage_bwd.cuh: the rows a
+// position's taps may use.  NoBand, the unbanded and row-chunked entry
+// points', is the field's rows and compiles to the filter-free code.  Band,
+// the row-banded entry points' (interp_band_fwd.cu, interp_band_bwd.cu), is
+// the rows of the position's band in the plan of ops/interp_band.py; a tap
+// row outside them adds to no output, as in the Pallas banded kernels, whose
+// blocks contract over their band's rows only.
 //
 // The window kernel (window_fwd_kernel, launched by launch_window()) is the
 // row-chunked forward's design: one block per (b, tile of consecutive
@@ -28,7 +37,10 @@
 //   1. Each thread loads its items' positions; the block reduces floor(py)
 //      over its finite positions to the tap rows [row_lo, row_hi] (a
 //      non-finite position has no taps and is left out: an inf would widen
-//      the window to the whole field).
+//      the window to the whole field).  With a band, the window is cut to
+//      the tile's band, which all of its positions share (below): no row
+//      outside it is staged, so no item adds a tap outside its band, and
+//      the filter costs the gather nothing.
 //   2. The window's rows, rows x C cells of vg channels, are staged in
 //      dynamic shared memory, each cell's vg channels as one 16-byte
 //      cp.async (bypassing the registers), all of a slab's copies in flight
@@ -45,6 +57,14 @@
 //      shared memory is.
 //   4. The items' float32 sums stay in registers across the slabs and the
 //      output is written once, in the field's type.
+//
+// With a band, tiles are aligned to bands: each band's positions are tiled
+// from a tile of their own on, the last one partial where the tile does not
+// divide the band (at 1.40625 deg a 1024-thread block's 2,048 positions are
+// one band of 8 arrival rows of 256, so none is).  Unaligned tiles, each
+// item's taps held to its own band in add_taps() where a tile spanned two
+// bands, measured slower there, even where no tile spanned two: the
+// per-item code spilled registers (PERF.md).
 //
 // A slab is staged, then gathered: row groups whose copies overlap the
 // gathers of the group before, two blocks an SM (512 threads) and 8-byte
@@ -145,6 +165,35 @@ __device__ __forceinline__ void stage_cells(T* slab, const T* src, int n_cells, 
   }
 }
 
+// The band filter: rows(p, R) is [x, y), the rows that the taps of position
+// p (counted within its batch) may use; tiles(P, tile) is the count of the
+// window kernel's tiles of tile positions, none of which straddles two sets
+// of rows.  NoBand: the field's rows, for every position.
+struct NoBand {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ int2 rows(int64_t, int R) const { return make_int2(0, R); }
+  int64_t tiles(int64_t P, int tile) const { return (P + tile - 1) / tile; }
+};
+
+// The band of position p in the row-banded plan (ops/interp_band.py,
+// paradis_tpu/ops/interp_pallas.py:_band_r0): band p / (W * rpb), rows
+// [lo, lo + band_rows) with lo = clip(band * rpb + pad - halo_lo, 0, R -
+// band_rows), inside the field since 0 < band_rows <= R.  The entry points
+// check P <= INT_MAX, so the band is a 32-bit division.
+struct Band {
+  static constexpr bool kOn = true;
+  int per_band;  // positions a band: W * rpb
+  int rpb, band_rows, halo_lo, pad;
+  __device__ __forceinline__ int2 rows(int64_t p, int R) const {
+    const int band = static_cast<int>(p) / per_band;
+    const int lo = min(max(band * rpb + pad - halo_lo, 0), R - band_rows);
+    return make_int2(lo, lo + band_rows);
+  }
+  // each band's positions from a tile of their own on (P is a whole number
+  // of bands)
+  int64_t tiles(int64_t P, int tile) const { return P / per_band * ((per_band + tile - 1) / tile); }
+};
+
 // acc plus the taps of the position (y, x) whose rows lie in [r0, r1), read
 // at channel ch of the slab [r1 - r0, C, kVg] that holds those rows.
 template <bool kBicubic, typename T, int kVg>
@@ -193,11 +242,11 @@ __host__ __device__ constexpr int items_of() {
   return 32 / static_cast<int>(sizeof(T));
 }
 
-template <bool kBicubic, typename T, int kVg>
+template <bool kBicubic, typename T, int kVg, typename Rows>
 __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads)
 window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                   const float* __restrict__ pos_x, T* __restrict__ out, int64_t P, int R, int C,
-                  int V, int n_tiles, int n_groups, int slab_rows, bool vec) {
+                  int V, int n_tiles, int n_groups, int slab_rows, bool vec, Rows rows) {
   using K = Taps<kBicubic>;
   constexpr int kItems = items_of<T>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -210,8 +259,27 @@ window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
   const int64_t b = blockIdx.x / (n_tiles * n_groups);
   const int v0 = group * kVg;
   const int tile_pos = threads / kVg * kItems;
-  const int64_t p0 = static_cast<int64_t>(t) * tile_pos;
-  const int n_pos = static_cast<int>(P - p0 < tile_pos ? P - p0 : tile_pos);
+  int64_t p0 = static_cast<int64_t>(t) * tile_pos;
+  int64_t end = P;  // one past the last position of the tile's set of rows
+  if constexpr (Rows::kOn) {
+    // tile t is tile t % k of band t / k: no tile straddles two bands
+    const int k = (rows.per_band + tile_pos - 1) / tile_pos;
+    p0 = static_cast<int64_t>(t / k) * rows.per_band + static_cast<int64_t>(t % k) * tile_pos;
+    end = static_cast<int64_t>(t / k + 1) * rows.per_band;
+  }
+  const int n_pos = static_cast<int>(end - p0 < tile_pos ? end - p0 : tile_pos);
+  // with a band, the tile's start and size wait in shared memory across the
+  // slabs for the stores: held in registers through the gathers (the start
+  // is a division, not recomputed) they spilled, 2% slower in fp32 and 3% in
+  // bf16 at 1.40625 deg (PERF.md)
+  __shared__ int64_t tile_p0;
+  __shared__ int tile_n;
+  if constexpr (Rows::kOn) {
+    if (threadIdx.x == 0) {
+      tile_p0 = p0;
+      tile_n = n_pos;
+    }
+  }
   // item j of this thread: position threadIdx.x / kVg + j * threads / kVg,
   // channel v0 + ch
   const int ch = static_cast<int>(threadIdx.x % kVg);
@@ -249,8 +317,15 @@ window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
     atomicMax(&window[1], hi);
   }
   __syncthreads();
-  const int row_lo = max(window[0] + K::kFirst, 0);
-  const int row_hi = min(window[1] + K::kFirst + K::kN - 1, R - 1);
+  int row_lo = max(window[0] + K::kFirst, 0);
+  int row_hi = min(window[1] + K::kFirst + K::kN - 1, R - 1);
+  if constexpr (Rows::kOn) {
+    // the tile's band, which all of its positions share: no other row is
+    // staged, so no item adds a tap outside its band
+    const int2 band = rows.rows(p0, R);
+    row_lo = max(row_lo, band.x);
+    row_hi = min(row_hi, band.y - 1);
+  }
   // the channel group of the batch's first cell
   const T* plane = field + b * R * static_cast<int64_t>(C) * V + v0;
 
@@ -268,10 +343,16 @@ window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
     __syncthreads();  // every thread is done with the slab
   }
 
+  int64_t out_p0 = p0;
+  int out_n = n_pos;
+  if constexpr (Rows::kOn) {
+    out_p0 = tile_p0;
+    out_n = tile_n;
+  }
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int p = static_cast<int>(threadIdx.x / kVg) + j * (threads / kVg);
-    if (p < n_pos && ch_ok) out[(b * P + p0 + p) * V + v0 + ch] = from_float<T>(acc[j]);
+    if (p < out_n && ch_ok) out[(b * P + out_p0 + p) * V + v0 + ch] = from_float<T>(acc[j]);
   }
 }
 
@@ -285,7 +366,7 @@ struct Fit {
 
 // The Fit of the current device, read once a device (the kernel opted in
 // to avail bytes of dynamic shared memory and to the largest carveout).
-template <bool kBicubic, typename T, int kVg>
+template <bool kBicubic, typename T, int kVg, typename Rows>
 cudaError_t fit_of(Fit* fit) {
   static std::mutex mu;
   static std::map<int, Fit> fits;
@@ -298,7 +379,7 @@ cudaError_t fit_of(Fit* fit) {
     *fit = known->second;
     return cudaSuccess;
   }
-  auto kernel = window_fwd_kernel<kBicubic, T, kVg>;
+  auto kernel = window_fwd_kernel<kBicubic, T, kVg, Rows>;
   int smem_block = 0, smem_sm = 0, smem_reserved = 0;
   Fit f;
   err = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, device);
@@ -329,20 +410,17 @@ cudaError_t fit_of(Fit* fit) {
   return cudaSuccess;
 }
 
-template <bool kBicubic, typename T, int kVg>
+template <bool kBicubic, typename T, int kVg, typename Rows>
 int launch_groups(const void* field, const float* py, const float* px, void* out, int64_t B,
-                  int64_t P, int R, int C, int V, cudaStream_t stream) {
+                  int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows) {
   constexpr int kItems = items_of<T>();
   Fit fit;
-  const cudaError_t err = fit_of<kBicubic, T, kVg>(&fit);
+  const cudaError_t err = fit_of<kBicubic, T, kVg, Rows>(&fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t row_bytes = static_cast<int64_t>(C) * kVg * sizeof(T);
   if (row_bytes > fit.avail) return kNoFit;
   const int64_t n_groups = (V + kVg - 1) / kVg;
-  auto n_tiles = [&](int threads) {
-    const int64_t tile = threads / kVg * kItems;
-    return (P + tile - 1) / tile;
-  };
+  auto n_tiles = [&](int threads) { return rows.tiles(P, threads / kVg * kItems); };
   int size = 0;  // the block: kMaxThreads >> size threads
   while ((kMaxThreads >> size) > kMinThreads &&
          B * n_groups * n_tiles(kMaxThreads >> size) < 8LL * fit.sms)
@@ -357,29 +435,31 @@ int launch_groups(const void* field, const float* py, const float* px, void* out
   const int64_t smem = slab_rows * row_bytes;
   const bool vec = wide_cell<T, kVg>() && V % kVg == 0 &&
                    reinterpret_cast<uintptr_t>(field) % kCopyBytes == 0;
-  window_fwd_kernel<kBicubic, T, kVg>
+  window_fwd_kernel<kBicubic, T, kVg, Rows>
       <<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem), stream>>>(
           static_cast<const T*>(field), py, px, static_cast<T*>(out), P, R, C, V,
-          static_cast<int>(n_tiles(threads)), static_cast<int>(n_groups), slab_rows, vec);
+          static_cast<int>(n_tiles(threads)), static_cast<int>(n_groups), slab_rows, vec, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace window
 
 // Launch the window kernel with the widest channel group whose row fits:
-// 16 bytes of channels a cell where V has that many, else one channel.
-// Returns the CUDA error of the launch (0 on success), cudaErrorInvalidValue
-// where one field row of one channel does not fit in shared memory.
-template <bool kBicubic, typename T>
+// 16 bytes of channels a cell where V has that many, else one channel; each
+// position's taps held to rows.rows(p, R).  Returns the CUDA error of the
+// launch (0 on success), cudaErrorInvalidValue where one field row of one
+// channel does not fit in shared memory.
+template <bool kBicubic, typename T, typename Rows = NoBand>
 int launch_window(const void* field, const float* py, const float* px, void* out, int64_t B,
-                  int64_t P, int R, int C, int V, cudaStream_t stream) {
+                  int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows = Rows{}) {
   constexpr int kWide = kCopyBytes / static_cast<int>(sizeof(T));
   if (V >= kWide) {
-    const int res = window::launch_groups<kBicubic, T, kWide>(field, py, px, out, B, P, R, C, V,
-                                                              stream);
+    const int res = window::launch_groups<kBicubic, T, kWide, Rows>(field, py, px, out, B, P, R,
+                                                                    C, V, stream, rows);
     if (res != window::kNoFit) return res;
   }
-  const int res = window::launch_groups<kBicubic, T, 1>(field, py, px, out, B, P, R, C, V, stream);
+  const int res = window::launch_groups<kBicubic, T, 1, Rows>(field, py, px, out, B, P, R, C, V,
+                                                              stream, rows);
   return res == window::kNoFit ? static_cast<int>(cudaErrorInvalidValue) : res;
 }
 

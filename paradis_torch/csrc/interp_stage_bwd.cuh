@@ -1,7 +1,8 @@
 // The backward of the gather-interpolation, for Hopper (sm_90a): one kernel,
-// launched by both backward entry points (interp_bwd.cu, the counterpart of
-// paradis_tpu/ops/interp_pallas.py:_bwd_kernel, and interp_chunk_bwd.cu, of
-// _bwd_kernel_chunked), so that both give the same bits.
+// launched by the three backward entry points (interp_bwd.cu, the
+// counterpart of paradis_tpu/ops/interp_pallas.py:_bwd_kernel,
+// interp_chunk_bwd.cu, of _bwd_kernel_chunked, and interp_band_bwd.cu, of
+// _bwd_kernel_banded), so that all three give the same bits of d_py and d_px.
 //
 //   d_field[b,r,c,v] = sum_p g[b,p,v] * K(py - r) * K(px - c)
 //   d_py[b,p,v]      = g * sum_r K'(py - r) * sum_c K(px - c)  * f[b,r,c,v]
@@ -15,6 +16,12 @@
 // [0,R) x [0,C) add to none of the three outputs, and a non-finite position
 // has no taps, per position.
 //
+// The band filter of interp_stage.cuh (NoBand, Band) is a compile-time
+// policy here too: a tap row outside rows.rows(p, R), the position's band
+// for the row-banded entry point, adds to none of the three outputs.  An
+// item's kept rows are its tap rows in [lo, hi) (the field's rows with
+// NoBand): from its head row, max(top, lo), to min(top + kN - 1, hi - 1).
+//
 // Design: the block that owns a cell of d_field computes it.  A block owns
 // (b, a group of kVg channels, a slab of rows [r0, r1)): it keeps a zeroed
 // float32 accumulator of its slab's d_field in shared memory, stages the
@@ -24,10 +31,10 @@
 // slab's d_field is then written once, with plain stores in the field's
 // type: no global atomic, no zeroed buffer and no cast pass, and every cell
 // of d_field is written by exactly one block.  A (position, channel) item
-// belongs to the slab that holds its first tap row in the field (its head
-// row): that block, whose halo holds all of the item's tap rows, computes
-// d_py and d_px whole, in the order of add_bwd_taps() below; a slab that
-// holds only the item's later tap rows adds their d_field taps and reads no
+// belongs to the slab that holds its first kept tap row (its head row):
+// that block, whose halo holds all of the item's kept rows, computes d_py
+// and d_px whole, in the order of add_bwd_taps() below; a slab that holds
+// only the item's later kept rows adds their d_field taps and reads no
 // field.  The slabs of a group are adjacent in launch order, so they read
 // its positions while these are in L2.
 //
@@ -36,8 +43,10 @@
 // writes for each chunk of kSpanPos positions and kWide channels the least
 // and greatest head row of its items (its span); a warp of a slab block
 // loads the items of a chunk only where the span reaches the slab.  The
-// pre-pass also writes the zero d_py and d_px of an item with no tap row in
-// the field (NaN and inf too), which no slab visits.
+// pre-pass also writes the zero d_py and d_px of an item with no kept row
+// (NaN and inf too, and with a band an item whose taps all leave it), which
+// no slab visits.  The band only removes rows, so spans of the filtered head
+// rows still never miss a slab.
 //
 // kVg is kWide = 2 channels (8-byte fp32 or 4-byte bf16 field cells, 8-byte
 // accumulator cells), or 1 where V is 1 or one row of two does not fit.  A
@@ -109,15 +118,15 @@ __host__ __device__ constexpr int64_t span_ints(int64_t B, int64_t P, int64_t V)
 
 // The span pre-pass: one thread a (b, chunk of kSpanPos positions, group of
 // kWide channels), groups fastest so that a warp's loads of py are
-// contiguous.  It writes the least and the greatest head row (the first tap
-// row in the field) of the chunk's items of the group, (INT_MAX, INT_MIN)
-// where none has a tap row in the field; and the zero sums of d_py and d_px
-// of each item without one (NaN and inf too), which no slab visits.
-template <bool kBicubic, typename TG>
+// contiguous.  It writes the least and the greatest head row (the first kept
+// tap row) of the chunk's items of the group, (INT_MAX, INT_MIN) where none
+// has a kept row; and the zero sums of d_py and d_px of each item without
+// one (NaN and inf too), which no slab visits.
+template <bool kBicubic, typename TG, typename Rows>
 __global__ void __launch_bounds__(kSpanThreads)
 span_kernel(const float* __restrict__ pos_y, const TG* __restrict__ grad,
             float* __restrict__ d_py, float* __restrict__ d_px, int2* __restrict__ span,
-            int64_t B, int64_t P, int R, int V) {
+            int64_t B, int64_t P, int R, int V, Rows rows) {
   using K = Taps<kBicubic>;
   const int64_t n_groups = (V + kWide - 1) / kWide;
   const int64_t n_chunks = (P + kSpanPos - 1) / kSpanPos;
@@ -131,19 +140,22 @@ span_kernel(const float* __restrict__ pos_y, const TG* __restrict__ grad,
   const int n_pos = static_cast<int>(P - p0 < kSpanPos ? P - p0 : kSpanPos);
 #pragma unroll 8
   for (int j = 0; j < n_pos; ++j) {
+    const int2 keep = rows.rows(p0 + j, R);  // the rows its taps may use
+    const float keep_lo = static_cast<float>(keep.x);
+    const float keep_hi = static_cast<float>(keep.y - 1);
 #pragma unroll
     for (int q = 0; q < kWide; ++q) {
       const int64_t v = kWide * group + q;
       if (v >= V) continue;
       const int64_t at = (b * P + p0 + j) * V + v;
       const float top = floorf(pos_y[at]) + static_cast<float>(K::kFirst);  // first tap row
-      if (top <= static_cast<float>(R - 1) && top + static_cast<float>(K::kN - 1) >= 0.0f) {
-        const int head = static_cast<int>(fmaxf(top, 0.0f));
+      if (top <= keep_hi && top + static_cast<float>(K::kN - 1) >= keep_lo) {
+        const int head = static_cast<int>(fmaxf(top, keep_lo));
         lo = min(lo, head);
         hi = max(hi, head);
       } else {
-        // no tap row in the field: the sums are zero, in the same product
-        // as any other item's
+        // no kept tap row: the sums are zero, in the same product as any
+        // other item's
         const float g = to_float(grad[at]);
         d_py[at] = g * 0.0f;
         d_px[at] = g * 0.0f;
@@ -204,16 +216,17 @@ __device__ __forceinline__ void stage_group(T* slab, const T* src, int n_cells, 
 }
 
 // The taps of the item (y, x, g) at channel ch of slab rows [r0, r1), whose
-// tap rows in the field all lie in the staged rows f [r0, r1 + kN - 1) when
-// kSums: g*K*K of each tap in a row of [r0, r1) is added into the
-// accumulator acc [r1 - r0, C, kVg]; with kSums, the sums of d_py and d_px
-// (without the factor g) are returned in *sum_y, *sum_x.  Their float order:
-// over a tap row's columns first, then the rows in increasing order.  Rows
-// and columns outside the field are skipped (NaN and inf too).
+// kept tap rows (those in [keep_lo, keep_hi], inside the field) all lie in
+// the staged rows f [r0, r1 + kN - 1) when kSums: g*K*K of each kept tap in
+// a row of [r0, r1) is added into the accumulator acc [r1 - r0, C, kVg];
+// with kSums, the sums of d_py and d_px (without the factor g) are returned
+// in *sum_y, *sum_x.  Their float order: over a tap row's columns first, then
+// the rows in increasing order.  Other rows, and columns outside the field,
+// are skipped (NaN and inf too).
 template <bool kBicubic, bool kSums, typename T, int kVg>
 __device__ __forceinline__ void add_bwd_taps(float y, float x, float g, const T* f, float* acc,
-                                             int ch, int r0, int r1, int R, int C, float* sum_y,
-                                             float* sum_x) {
+                                             int ch, int r0, int r1, float keep_lo,
+                                             float keep_hi, int C, float* sum_y, float* sum_x) {
   using K = Taps<kBicubic>;
   const float fy = floorf(y);
   const float fx = floorf(x);
@@ -229,7 +242,7 @@ __device__ __forceinline__ void add_bwd_taps(float y, float x, float g, const T*
 #pragma unroll
   for (int ty = 0; ty < K::kN; ++ty) {
     const float rf = fy + static_cast<float>(K::kFirst + ty);
-    if (!(rf >= 0.0f && rf <= static_cast<float>(R - 1))) continue;  // outside the field
+    if (!(rf >= keep_lo && rf <= keep_hi)) continue;  // outside the field or the band
     const int r = static_cast<int>(rf);
     if (!kSums && r < r0) continue;  // another slab's row
     const bool own = r < r1;
@@ -259,13 +272,14 @@ __device__ __forceinline__ void add_bwd_taps(float y, float x, float g, const T*
   }
 }
 
-template <bool kBicubic, typename T, typename TG, int kVg>
+template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 slab_bwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                 const float* __restrict__ pos_x, const TG* __restrict__ grad,
                 T* __restrict__ d_field, float* __restrict__ d_py, float* __restrict__ d_px,
                 const int2* __restrict__ span, int64_t P, int R, int C, int V, int n_slabs,
-                int n_groups, int slab_rows, int64_t acc_at, bool vec_in, bool vec_out) {
+                int n_groups, int slab_rows, int64_t acc_at, bool vec_in, bool vec_out,
+                Rows rows) {
   using K = Taps<kBicubic>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* f = reinterpret_cast<T*>(smem);                         // [f1 - r0, C, kVg]
@@ -308,24 +322,28 @@ slab_bwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
       if (!(p < P && ch_ok)) continue;
       const int64_t at = (b * P + p) * V + v0 + ch;
       const float y = pos_y[at];
+      const int2 keep = rows.rows(p, R);  // the rows its taps may use
+      const float keep_lo = static_cast<float>(keep.x);
+      const float keep_hi = static_cast<float>(keep.y - 1);
       const float top = floorf(y) + static_cast<float>(K::kFirst);  // first tap row
-      const float bottom = top + static_cast<float>(K::kN - 1);      // last tap row
-      // no tap row in the field (NaN and inf too; the span pre-pass wrote
-      // its sums), or none in this slab
-      if (!(top <= static_cast<float>(R - 1) && bottom >= 0.0f)) continue;
-      const float head = fmaxf(top, 0.0f);  // the first tap row in the field
+      float bottom = top + static_cast<float>(K::kN - 1);            // last tap row
+      // no kept tap row (NaN and inf too; the span pre-pass wrote its
+      // sums), or none in this slab
+      if (!(top <= keep_hi && bottom >= keep_lo)) continue;
+      const float head = fmaxf(top, keep_lo);  // the first kept tap row
+      if constexpr (Rows::kOn) bottom = fminf(bottom, keep_hi);  // the last kept one
       if (!(head <= last && bottom >= first)) continue;
       const float g = to_float(grad[at]);
       const float x = pos_x[at];
       if (head >= first) {  // the item's own slab: its sums, and its taps in [r0, r1)
         float sum_y, sum_x;
-        add_bwd_taps<kBicubic, true, T, kVg>(y, x, g, f, acc, ch, r0, r1, R, C, &sum_y,
-                                             &sum_x);
+        add_bwd_taps<kBicubic, true, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
+                                             &sum_y, &sum_x);
         d_py[at] = g * sum_y;
         d_px[at] = g * sum_x;
-      } else {  // a later slab of its tap rows: their d_field taps only
-        add_bwd_taps<kBicubic, false, T, kVg>(y, x, g, f, acc, ch, r0, r1, R, C, nullptr,
-                                              nullptr);
+      } else {  // a later slab of its kept rows: their d_field taps only
+        add_bwd_taps<kBicubic, false, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
+                                              nullptr, nullptr);
       }
     }
   }
@@ -357,7 +375,7 @@ struct Fit {
   int64_t share;
 };
 
-template <bool kBicubic, typename T, typename TG, int kVg>
+template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
 cudaError_t fit_of(Fit* fit) {
   static std::mutex mu;
   static std::map<int, Fit> fits;
@@ -370,7 +388,7 @@ cudaError_t fit_of(Fit* fit) {
     *fit = known->second;
     return cudaSuccess;
   }
-  auto kernel = slab_bwd_kernel<kBicubic, T, TG, kVg>;
+  auto kernel = slab_bwd_kernel<kBicubic, T, TG, kVg, Rows>;
   int smem_block = 0, smem_sm = 0, smem_reserved = 0;
   Fit f;
   err = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, device);
@@ -406,11 +424,11 @@ struct Plan {
 // The plan of a launch with groups of kVg channels: cudaSuccess, kNoFit
 // where a slab of one row (and its halo) does not fit in shared memory, or
 // a CUDA error.
-template <bool kBicubic, typename T, typename TG, int kVg>
+template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
 int plan_of(int64_t B, int R, int C, int V, Plan* plan) {
   constexpr int kHalo = Taps<kBicubic>::kN - 1;
   Fit fit;
-  const cudaError_t err = fit_of<kBicubic, T, TG, kVg>(&fit);
+  const cudaError_t err = fit_of<kBicubic, T, TG, kVg, Rows>(&fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t f_row = static_cast<int64_t>(C) * cell_bytes<T, kVg>();  // a staged row
   const int64_t a_row = static_cast<int64_t>(C) * kVg * 4;               // an accumulator row
@@ -439,57 +457,58 @@ int plan_of(int64_t B, int R, int C, int V, Plan* plan) {
   return plan->blocks > 0x7fffffff ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-template <bool kBicubic, typename T, typename TG, int kVg>
+template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
 int launch_slabs(const Plan& plan, const void* field, const float* py, const float* px,
                  const void* grad, void* d_field, float* d_py, float* d_px, const int2* span,
-                 int64_t P, int R, int C, int V, cudaStream_t stream) {
+                 int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows) {
   const bool vec_in = copy_cell<T, kVg>() && V % kVg == 0 &&
                       reinterpret_cast<uintptr_t>(field) % cell_bytes<T, kVg>() == 0;
   const bool vec_out = V % kVg == 0 &&
                        reinterpret_cast<uintptr_t>(d_field) % cell_bytes<T, kVg>() == 0;
-  slab_bwd_kernel<kBicubic, T, TG, kVg>
+  slab_bwd_kernel<kBicubic, T, TG, kVg, Rows>
       <<<static_cast<unsigned>(plan.blocks), kThreads, static_cast<size_t>(plan.smem),
          stream>>>(static_cast<const T*>(field), py, px, static_cast<const TG*>(grad),
                    static_cast<T*>(d_field), d_py, d_px, span, P, R, C, V, plan.n_slabs,
-                   plan.n_groups, plan.slab_rows, plan.acc_at, vec_in, vec_out);
+                   plan.n_groups, plan.slab_rows, plan.acc_at, vec_in, vec_out, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The span pre-pass, then the slabs of the widest channel group whose row
 // fits: kWide channels where V has them, else one.  Where neither fits,
 // nothing is launched.
-template <bool kBicubic, typename T, typename TG>
+template <bool kBicubic, typename T, typename TG, typename Rows>
 int launch(const void* field, const float* py, const float* px, const void* grad,
            void* d_field, float* d_py, float* d_px, int2* span, int64_t B, int64_t P, int R,
-           int C, int V, cudaStream_t stream) {
+           int C, int V, cudaStream_t stream, Rows rows) {
   Plan plan;
-  int res = V >= kWide ? plan_of<kBicubic, T, TG, kWide>(B, R, C, V, &plan) : kNoFit;
+  int res = V >= kWide ? plan_of<kBicubic, T, TG, kWide, Rows>(B, R, C, V, &plan) : kNoFit;
   const bool wide = res == 0;
-  if (res == kNoFit) res = plan_of<kBicubic, T, TG, 1>(B, R, C, V, &plan);
+  if (res == kNoFit) res = plan_of<kBicubic, T, TG, 1, Rows>(B, R, C, V, &plan);
   if (res == kNoFit) return cudaErrorInvalidValue;
   if (res != 0) return res;
   const int64_t threads = span_ints(B, P, V) / 2;
-  span_kernel<kBicubic, TG><<<static_cast<unsigned>((threads + kSpanThreads - 1) / kSpanThreads),
-                              kSpanThreads, 0, stream>>>(py, static_cast<const TG*>(grad), d_py,
-                                                         d_px, span, B, P, R, V);
+  span_kernel<kBicubic, TG, Rows>
+      <<<static_cast<unsigned>((threads + kSpanThreads - 1) / kSpanThreads), kSpanThreads, 0,
+         stream>>>(py, static_cast<const TG*>(grad), d_py, d_px, span, B, P, R, V, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return wide ? launch_slabs<kBicubic, T, TG, kWide>(plan, field, py, px, grad, d_field, d_py,
-                                                     d_px, span, P, R, C, V, stream)
-              : launch_slabs<kBicubic, T, TG, 1>(plan, field, py, px, grad, d_field, d_py,
-                                                 d_px, span, P, R, C, V, stream);
+  return wide ? launch_slabs<kBicubic, T, TG, kWide, Rows>(plan, field, py, px, grad, d_field,
+                                                           d_py, d_px, span, P, R, C, V, stream,
+                                                           rows)
+              : launch_slabs<kBicubic, T, TG, 1, Rows>(plan, field, py, px, grad, d_field, d_py,
+                                                       d_px, span, P, R, C, V, stream, rows);
 }
 
-template <bool kBicubic, typename T>
+template <bool kBicubic, typename T, typename Rows>
 int launch_grad(const void* field, const float* py, const float* px, const void* grad,
                 void* d_field, float* d_py, float* d_px, int2* span, int64_t B, int64_t P, int R,
-                int C, int V, int grad_dtype, cudaStream_t stream) {
+                int C, int V, int grad_dtype, cudaStream_t stream, Rows rows) {
   if (grad_dtype == 0)
-    return launch<kBicubic, T, float>(field, py, px, grad, d_field, d_py, d_px, span, B, P, R,
-                                      C, V, stream);
+    return launch<kBicubic, T, float, Rows>(field, py, px, grad, d_field, d_py, d_px, span, B,
+                                            P, R, C, V, stream, rows);
   if (grad_dtype == 1)
-    return launch<kBicubic, T, __nv_bfloat16>(field, py, px, grad, d_field, d_py, d_px, span, B,
-                                              P, R, C, V, stream);
+    return launch<kBicubic, T, __nv_bfloat16, Rows>(field, py, px, grad, d_field, d_py, d_px,
+                                                    span, B, P, R, C, V, stream, rows);
   return cudaErrorInvalidValue;
 }
 
@@ -499,14 +518,16 @@ int launch_grad(const void* field, const float* py, const float* px, const void*
 // mode: 0 bilinear, 1 bicubic; dtype (field and d_field), grad_dtype (g):
 // 0 float32, 1 bfloat16.  d_field is [B,R,C,V] in the field's type, written
 // whole; d_py and d_px are float32 [B,P,V]; span is int32 scratch of
-// span_ints(B, P, V) elements (2 * B * ceil(V / 2) * ceil(P / 32)).  Returns
-// the CUDA error of the launch (0 on success), cudaErrorInvalidValue, with
-// nothing launched, for arguments it does not take or where a slab of one
-// row (and its halo) of one channel does not fit in shared memory.
-inline int launch_slab_bwd(const void* field, const void* pos_y, const void* pos_x,
-                           const void* grad, void* d_field, void* d_py, void* d_px, void* span,
-                           int64_t B, int64_t P, int R, int C, int V, int mode, int dtype,
-                           int grad_dtype, void* stream) {
+// span_ints(B, P, V) elements (2 * B * ceil(V / 2) * ceil(P / 32)); each
+// position's taps are held to rows.rows(p, R).  Returns the CUDA error of
+// the launch (0 on success), cudaErrorInvalidValue, with nothing launched,
+// for arguments it does not take or where a slab of one row (and its halo)
+// of one channel does not fit in shared memory.
+template <typename Rows = NoBand>
+int launch_slab_bwd(const void* field, const void* pos_y, const void* pos_x, const void* grad,
+                    void* d_field, void* d_py, void* d_px, void* span, int64_t B, int64_t P,
+                    int R, int C, int V, int mode, int dtype, int grad_dtype, void* stream,
+                    Rows rows = Rows{}) {
   if (B <= 0 || P <= 0 || R <= 0 || C <= 0 || V <= 0) return cudaErrorInvalidValue;
   if (grad_dtype != 0 && grad_dtype != 1) return cudaErrorInvalidValue;
   const float* py = static_cast<const float*>(pos_y);
@@ -516,17 +537,19 @@ inline int launch_slab_bwd(const void* field, const void* pos_y, const void* pos
   int2* sp = static_cast<int2*>(span);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 1 && dtype == 0)
-    return slab_bwd::launch_grad<true, float>(field, py, px, grad, d_field, dy, dx, sp, B, P, R,
-                                              C, V, grad_dtype, s);
+    return slab_bwd::launch_grad<true, float, Rows>(field, py, px, grad, d_field, dy, dx, sp, B,
+                                                    P, R, C, V, grad_dtype, s, rows);
   if (mode == 1 && dtype == 1)
-    return slab_bwd::launch_grad<true, __nv_bfloat16>(field, py, px, grad, d_field, dy, dx, sp,
-                                                      B, P, R, C, V, grad_dtype, s);
+    return slab_bwd::launch_grad<true, __nv_bfloat16, Rows>(field, py, px, grad, d_field, dy, dx,
+                                                            sp, B, P, R, C, V, grad_dtype, s,
+                                                            rows);
   if (mode == 0 && dtype == 0)
-    return slab_bwd::launch_grad<false, float>(field, py, px, grad, d_field, dy, dx, sp, B, P, R,
-                                               C, V, grad_dtype, s);
+    return slab_bwd::launch_grad<false, float, Rows>(field, py, px, grad, d_field, dy, dx, sp, B,
+                                                     P, R, C, V, grad_dtype, s, rows);
   if (mode == 0 && dtype == 1)
-    return slab_bwd::launch_grad<false, __nv_bfloat16>(field, py, px, grad, d_field, dy, dx, sp,
-                                                       B, P, R, C, V, grad_dtype, s);
+    return slab_bwd::launch_grad<false, __nv_bfloat16, Rows>(field, py, px, grad, d_field, dy,
+                                                             dx, sp, B, P, R, C, V, grad_dtype,
+                                                             s, rows);
   return cudaErrorInvalidValue;
 }
 

@@ -13,10 +13,14 @@ unbanded function of the clamped positions.
 
 The plan is ``(rpb, band_rows, halo_lo, pad, m_pix)``: bands of ``rpb``
 arrival rows, band ``b`` seeing the padded rows from
-``clip(b·rpb + pad − halo_lo, 0, R − band_rows)`` on.  The CUDA kernels
+``clip(b·rpb + pad − halo_lo, 0, R − band_rows)`` on.  The CUDA entry points
 (``csrc/interp_band_fwd.cu``, ``csrc/interp_band_bwd.cu``) take the unbanded
-field and this plan; the plain versions here serve the CPU and are what the
-kernels are held against on the card.
+field and this plan, and launch the unbanded path's window forward and
+row-slab backward with a per-position band filter, the same rows as
+``band_rows_window``: they keep the banded function on any positions, and on
+clamped ones equal the unbanded kernels (the forward, d_py and d_px
+bitwise).  The plain versions here serve the CPU and are what the kernels
+are held against on the card.
 """
 
 from __future__ import annotations

@@ -4,14 +4,17 @@ autograd pairing.
 ``interp_fwd_cuda`` (``csrc/interp_fwd.cu``) replaces the TPU kernel
 ``paradis_tpu/ops/interp_pallas.py:_fwd_kernel`` (``interp_fwd_route`` says
 which of its two routes a field takes); ``interp_bwd_cuda``
-(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel`` (with the row-chunked
-backward, it launches the row-slab backward of ``csrc/interp_stage_bwd.cuh``); ``interp_band_fwd_cuda``
+(``csrc/interp_bwd.cu``) replaces ``_bwd_kernel``; ``interp_band_fwd_cuda``
 (``csrc/interp_band_fwd.cu``) and ``interp_band_bwd_cuda``
 (``csrc/interp_band_bwd.cu``) replace ``_fwd_kernel_banded`` and
 ``_bwd_kernel_banded``; ``interp_chunk_fwd_cuda`` (``csrc/interp_chunk_fwd.cu``)
 and ``interp_chunk_bwd_cuda`` (``csrc/interp_chunk_bwd.cu``) replace
-``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked``.  Each launches its
-kernel on CUDA tensors or raises: there is no fallback.  ``Interp`` is the
+``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked``.  The banded and
+row-chunked forwards, and the unbanded one on a field too large to keep
+resident, launch one window kernel (``csrc/interp_stage.cuh``); the three
+backwards launch one row-slab kernel (``csrc/interp_stage_bwd.cuh``); the
+banded entry points with a per-position band filter.  Each wrapper launches
+its kernel on CUDA tensors or raises: there is no fallback.  ``Interp`` is the
 ``torch.autograd.Function`` around a pair: with a band plan the banded
 kernels, else with a chunk size the row-chunked kernels, else the unbanded
 ones; on CPU tensors (or when asked for ``plain``) the plain versions of
@@ -46,8 +49,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The C entry point ``paradis_<name>`` of each kernel: its source in
 # ``csrc/``, then its count of pointers, of 64-bit integers and of ints before
 # the stream.  A forward takes field, pos_y, pos_x, out; a backward field,
-# pos_y, pos_x, g, d_field, d_py, d_px (the unbanded and row-chunked ones also
-# their span scratch, ``_bwd_outputs``); then B, P; then R, C, V, for a banded
+# pos_y, pos_x, g, d_field, d_py, d_px and their span scratch
+# (``_bwd_outputs``); then B, P; then R, C, V, for a banded
 # kernel W, rpb, band_rows, halo_lo, pad, for a chunked one rw; then mode,
 # dtype, and for a backward g's dtype.  The weight-generation kernels take
 # pos_y, pos_x, out; the element count; R, C, mode.  The contraction kernels
@@ -59,7 +62,7 @@ _SIGNATURES = {
     "interp_fwd_route": ("interp_fwd", 0, 0, 4),
     "interp_bwd": ("interp_bwd", 8, 2, 6),
     "interp_band_fwd": ("interp_band_fwd", 4, 2, 10),
-    "interp_band_bwd": ("interp_band_bwd", 7, 2, 11),
+    "interp_band_bwd": ("interp_band_bwd", 8, 2, 11),
     "interp_chunk_fwd": ("interp_chunk_fwd", 4, 2, 6),
     "interp_chunk_bwd": ("interp_chunk_bwd", 8, 2, 7),
     "interp_gen": ("interp_gen", 3, 1, 3),
@@ -164,9 +167,9 @@ _SPAN_POSITIONS = 32
 
 
 def _bwd_outputs(field: torch.Tensor, H: int, W: int):
-    """``(d_field, d_py, d_px, span)`` of the unbanded and row-chunked
-    backward kernels, uninitialised: those kernels write every element,
-    d_field in the field's dtype.  ``span`` is their scratch, int32 [B,
+    """``(d_field, d_py, d_px, span)`` of the backward kernels,
+    uninitialised: the kernels write every element, d_field in the field's
+    dtype.  ``span`` is their scratch, int32 [B,
     ceil(V / 2), ceil(H·W / 32), 2]: the first and last head row of each
     chunk of 32 positions of each channel pair."""
     B, R, C, V = field.shape
@@ -217,7 +220,11 @@ def _check_spec(field: torch.Tensor, pix_y: torch.Tensor, spec) -> tuple[int, ..
 def interp_band_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                          spec, mode: str = "bicubic") -> torch.Tensor:
     """Launch the row-banded forward kernel: arguments as ``interp_fwd_cuda``
-    plus the band plan of ``interp_band.band_spec``; positions clamped to it."""
+    plus the band plan of ``interp_band.band_spec``.  Each position's taps are
+    limited to its band (``interp_band_plain``'s function on any positions);
+    on positions clamped to the plan the result equals ``interp_fwd_cuda``'s
+    bitwise.  Raises where one field row of one channel does not fit the
+    card's shared memory."""
     global band_launches
     _check(field, pix_y, pix_x, mode)
     plan = _check_spec(field, pix_y, spec)
@@ -232,7 +239,8 @@ def interp_band_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.
                  B, H * W, R, C, V, *plan, _MODES[mode], _DTYPES[field.dtype],
                  _stream(field.device))
     if err != 0:
-        raise RuntimeError(f"interp_band_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"interp_band_fwd kernel launch failed with CUDA error {err} "
+                           f"(a row of {C} columns may not fit in shared memory)")
     band_launches += 1
     return out
 
@@ -240,27 +248,29 @@ def interp_band_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.
 def interp_band_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
                          g: torch.Tensor, spec, mode: str = "bicubic"):
     """Launch the row-banded backward kernel: ``(d_field, d_py, d_px)`` as
-    ``interp_bwd_cuda``, for the band plan ``spec``."""
+    ``interp_bwd_cuda``, each position's taps limited to its band in the plan
+    ``spec`` (``interp_band_bwd_plain``'s function on any positions); on
+    positions clamped to the plan, d_py and d_px equal ``interp_bwd_cuda``'s
+    bitwise.  Raises as ``interp_bwd_cuda``."""
     global band_bwd_launches
     _check(field, pix_y, pix_x, mode, g=g)
     plan = _check_spec(field, pix_y, spec)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field = torch.zeros((B, R, C, V), dtype=torch.float32, device=field.device)
-    d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
-    d_px = torch.empty_like(d_py)
+    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
     if d_py.numel() == 0:
-        return d_field.to(field.dtype), d_py, d_px
+        return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_band_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), B, H * W, R, C, V,
-                 *plan, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
+                 H * W, R, C, V, *plan, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
                  _stream(field.device))
     if err != 0:
-        raise RuntimeError(f"interp_band_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"interp_band_bwd kernel launch failed with CUDA error {err} "
+                           f"(a row of {C} columns may not fit in shared memory)")
     band_bwd_launches += 1
-    return d_field.to(field.dtype), d_py, d_px
+    return d_field, d_py, d_px
 
 
 def interp_chunk_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
@@ -322,10 +332,10 @@ class Interp(torch.autograd.Function):
     ``plain`` false a CUDA tensor goes to the kernels and a CPU tensor to the
     plain versions; with ``plain`` true the plain versions run on any device.
     The pair, in the priority of ``_fwd_tv`` / ``_bwd_tv``: a band plan
-    ``spec`` (``interp_band.band_spec``, positions clamped to it) selects the
-    row-banded pair; else ``chunk`` > 0 rows the row-chunked pair; else the
-    unbanded one.  The backward is not differentiable again (the kernels have
-    no backward of their own).
+    ``spec`` (``interp_band.band_spec``) selects the row-banded pair; else
+    ``chunk`` > 0 rows the row-chunked pair; else the unbanded one.  The
+    backward is not differentiable again (the kernels have no backward of
+    their own).
     """
 
     @staticmethod

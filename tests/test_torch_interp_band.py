@@ -19,13 +19,15 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from paradis_tpu.ops import interp_pallas  # noqa: E402
 from paradis_tpu.ops.interp_pallas import _band_spec, _band_starts  # noqa: E402
 from paradis_tpu.ops.interp_pallas import grid_sample_interp_pallas  # noqa: E402
 from paradis_torch.ops import interp_cuda  # noqa: E402
 from paradis_torch.ops.advection import interpolate  # noqa: E402
 from paradis_torch.ops.interp import interp_bwd_plain, interp_plain  # noqa: E402
-from paradis_torch.ops.interp_band import (band_spec, band_starts,  # noqa: E402
-                                           interp_band_bwd_plain, interp_band_plain)
+from paradis_torch.ops.interp_band import (band_rows_window, band_spec,  # noqa: E402
+                                           band_starts, interp_band_bwd_plain,
+                                           interp_band_plain)
 
 # Limits on max |port − Pallas| (the ones tests/test_torch_interp.py and
 # tests/test_torch_interp_bwd.py state).  fp32: the Pallas kernels contract
@@ -86,6 +88,40 @@ def test_the_1p4_plan_clips_its_edge_bands():
     assert band_starts(spec, 132) == [0, 0] + list(range(4, 93, 8)) + [92, 92]
     spec = band_spec(128, 256, 130, "bilinear", 0.3 / LAT_1P4)
     assert band_starts(spec, 130) == [0, 0] + list(range(4, 85, 8)) + [90, 90, 90]
+
+
+@pytest.mark.parametrize("H,W,R,mode,max_dy_pix", [
+    (128, 256, 132, "bicubic", 0.3 / LAT_1P4),   # the 1.40625° plan, its edge bands clipped
+    (128, 256, 130, "bilinear", 0.3 / LAT_1P4),
+    (32, 15, 36, "bicubic", 1.5),                # chip_smoke.py's band tail: 8 rows of 16
+    (32, 15, 34, "bilinear", 1.5),
+    (20, 16, 22, "bilinear", 0.5),               # rpb halved to 4
+], ids=["1p4-bicubic", "1p4-bilinear", "tail-bicubic", "tail-bilinear", "rpb4"])
+def test_each_positions_band_rows_match_pallas(monkeypatch, H, W, R, mode, max_dy_pix):
+    """The rows each position's taps may use, which the CUDA band filter
+    (``Band`` in ``csrc/interp_stage.cuh``) computes per position as band
+    ``p // (W·rpb)``, rows ``[lo, lo + band_rows)`` with ``lo = clip(band·rpb
+    + pad − halo_lo, 0, R − band_rows)``: ``band_rows_window`` and that
+    formula against the start row the Pallas banded kernels trace for each
+    band's blocks (``_band_r0`` at ``program_id(2) = band``, one block a
+    band) and against ``_band_starts``.  Every band lies inside the field."""
+    spec = band_spec(H, W, R, mode, max_dy_pix)
+    assert spec is not None
+    rpb, band_rows, halo_lo, pad, _ = spec
+    pallas_r0 = []
+    for band in range(H // rpb):
+        monkeypatch.setattr(interp_pallas.pl, "program_id",
+                            lambda axis, band=band: jnp.int32(band if axis == 2 else 0))
+        pallas_r0.append(int(interp_pallas._band_r0(spec, R, 1)))
+    assert pallas_r0 == _band_starts(spec, R)
+    per_position = np.repeat(pallas_r0, rpb * W)
+    lo, hi = band_rows_window(spec, R, H, W)
+    np.testing.assert_array_equal(lo.reshape(-1).numpy(), per_position)
+    np.testing.assert_array_equal((hi - lo).numpy(), band_rows)
+    p = np.arange(H * W)
+    np.testing.assert_array_equal(
+        np.clip(p // (W * rpb) * rpb + pad - halo_lo, 0, R - band_rows), per_position)
+    assert lo.min() >= 0 and hi.max() <= R
 
 
 def _setup(mode, H, W, V, m, spread, seed, kinks=False):

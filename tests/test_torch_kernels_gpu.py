@@ -131,8 +131,10 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     """The row-banded forward and backward kernels against their plain
     versions and against the unbanded kernels on the same clamped positions
     (limits as above: the same fp32 sums in another order, d_field in the
-    atomics' order, one bf16 ulp for a bf16 result), and the autograd pairing
-    with a band plan launches each banded kernel once and no unbanded one."""
+    atomics' order, one bf16 ulp for a bf16 result); under the clamp the band
+    filter removes no tap, so the forward and d_py, d_px equal the unbanded
+    kernels' bitwise.  The autograd pairing with a band plan launches each
+    banded kernel once and no unbanded one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from paradis_torch.ops.interp_band import interp_band_bwd_plain, interp_band_plain
@@ -146,6 +148,7 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     for ref in (interp_band_plain(f, y, x, spec, mode), interp_cuda.interp_fwd_cuda(f, y, x, mode)):
         ok, err = _within(out, ref, 1e-5, rel)
         assert ok, err
+    assert torch.equal(out, interp_cuda.interp_fwd_cuda(f, y, x, mode))
 
     before = interp_cuda.band_bwd_launches
     grads = interp_cuda.interp_band_bwd_cuda(f, y, x, g, spec, mode)
@@ -153,11 +156,12 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     assert interp_cuda.band_bwd_launches == before + 1
     assert grads[0].dtype == f.dtype and grads[1].dtype == grads[2].dtype == torch.float32
     tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
-    for ref in (interp_band_bwd_plain(f, y, x, g, spec, mode),
-                interp_cuda.interp_bwd_cuda(f, y, x, g, mode)):
+    unbanded = interp_cuda.interp_bwd_cuda(f, y, x, g, mode)
+    for ref in (interp_band_bwd_plain(f, y, x, g, spec, mode), unbanded):
         for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
             ok, err = _within(o, r, *tol)
             assert ok, (name, err)
+    assert torch.equal(grads[1], unbanded[1]) and torch.equal(grads[2], unbanded[2])
 
     leaves = [t.clone().requires_grad_() for t in (f, y, x)]
     counts = lambda: (interp_cuda.launches, interp_cuda.bwd_launches,  # noqa: E731
@@ -170,6 +174,116 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     for name, o, r, tol in zip(("d_field", "d_py", "d_px"), auto, grads, tols):
         ok, err = _within(o, r, *tol)
         assert ok, (name, err)
+
+
+# (B, V, H, W) and the row bound (px) of the unclamped banded cases; R and C
+# are H and W plus the mode's pad.  The band tail (bands of 8 rows over 16
+# padded rows; V 77, no multiple of a channel group), with B 2 and with a
+# field view off its 16-byte boundary; W 250 at 1.40625° rows, whose bands
+# of 2,000 positions the forward's tiles (256 positions fp32, 128 bf16 on a
+# 132-SM H100, V 64) do not divide, so each band ends in a partial tile, and
+# whose 32-position chunks of the backward's pre-pass straddle bands; and the
+# 1.40625° shape, whose 2,048-position tiles are its bands.
+BAND_OUTSIDE_CASES = {
+    "tail": ((1, 77, 32, 15), 1.5),
+    "tail-b2": ((2, 77, 32, 15), 1.5),
+    "tail-unaligned": ((1, 77, 32, 15), 1.5),
+    "two-bands": ((1, 64, 128, 250), 12.2),
+    "1p4": ((1, 768, 128, 256), 12.2),
+}
+
+
+def _band_taps(py, spec, R, mode):
+    """``(kept, cut)`` of each (position, channel): whether any of its tap
+    rows lies in its band (and so in the field), and whether any lies in the
+    field but outside its band.  A non-finite row has neither."""
+    from paradis_torch.ops.interp_band import band_rows_window
+
+    _, H, W, _ = py.shape
+    lo, hi = (t.view(1, H, W, 1) for t in band_rows_window(spec, R, H, W, py.device))
+    first, n = (-1, 4) if mode == "bicubic" else (0, 2)
+    kept = torch.zeros_like(py, dtype=torch.bool)
+    cut = torch.zeros_like(kept)
+    for k in range(n):
+        r = torch.floor(py) + (first + k)
+        in_field = (r >= 0) & (r <= R - 1)
+        in_band = (r >= lo) & (r < hi)
+        kept |= in_band
+        cut |= in_field & ~in_band
+    return kept, cut
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BAND_OUTSIDE_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_band_kernels_hold_taps_to_the_band_on_unclamped_rows_on_card(mode, dtype, case):
+    """Rows not clamped: within the bound, then 30% pushed 5–20 px beyond it,
+    so that taps leave their band (some inside the field, some beyond it);
+    1% of the rows NaN, 1% inf, 1% of the columns -inf.  The banded forward
+    and backward agree with the banded plain versions (limits as above);
+    where a tap leaves its band they differ from the unbanded kernels, and
+    where none does they equal them bitwise (the forward, d_py and d_px);
+    an item with no tap row in its band gets exactly zero out, d_py and
+    d_px."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops.interp_band import band_spec, interp_band_bwd_plain, interp_band_plain
+
+    (B, V, H, W), bound = BAND_OUTSIDE_CASES[case]
+    pad = 2 if mode == "bicubic" else 1
+    R, C = H + 2 * pad, W + 2 * pad
+    rng = np.random.default_rng(len(case) + 50)
+    field = rng.normal(size=(B, R, C, V)).astype(np.float32)
+    arr = (np.arange(H, dtype=np.float32) + pad)[None, :, None, None]
+    dy = rng.uniform(-bound, bound, size=(B, H, W, V))
+    push = rng.random(dy.shape) < 0.3
+    dy = np.where(push, dy + np.sign(dy) * rng.uniform(5.0, 20.0, dy.shape), dy)
+    py = (arr + dy).astype(np.float32)
+    px = rng.uniform(-3.0, C + 2.0, size=py.shape).astype(np.float32)
+    pick = rng.random(py.shape)
+    py[pick < 0.01] = np.nan
+    py[(pick >= 0.01) & (pick < 0.02)] = np.inf
+    px[(pick >= 0.02) & (pick < 0.03)] = -np.inf
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy(field).cuda().to(tdt)
+    if "unaligned" in case:
+        buf = torch.empty(f.numel() + 1, dtype=tdt, device="cuda")
+        f = buf[1:].view(f.shape).copy_(f)
+        assert f.is_contiguous() and f.data_ptr() % 16
+    y, x = torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda()
+    g = torch.from_numpy(rng.normal(size=py.shape).astype(np.float32)).cuda().to(tdt)
+    spec = band_spec(H, W, R, mode, bound)
+    assert spec is not None
+    kept, cut = _band_taps(y, spec, R, mode)
+    no_tap = ~kept | ~torch.isfinite(x)
+    assert cut.any() and (~kept & cut).any() and (~cut).any()
+
+    n0 = (interp_cuda.band_launches, interp_cuda.band_bwd_launches)
+    out = interp_cuda.interp_band_fwd_cuda(f, y, x, spec, mode)
+    grads = interp_cuda.interp_band_bwd_cuda(f, y, x, g, spec, mode)
+    torch.cuda.synchronize()
+    assert (interp_cuda.band_launches, interp_cuda.band_bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    assert out.dtype == f.dtype and grads[0].dtype == f.dtype
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    ok, err = _within(out, interp_band_plain(f, y, x, spec, mode), 1e-5, rel)
+    assert ok, err
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads,
+                               interp_band_bwd_plain(f, y, x, g, spec, mode), tols):
+        ok, err = _within(o, r, *tol)
+        assert ok, (name, err)
+        assert torch.isfinite(o).all(), name
+
+    unb_out = interp_cuda.interp_fwd_cuda(f, y, x, mode)
+    unb = interp_cuda.interp_bwd_cuda(f, y, x, g, mode)
+    assert (out != unb_out)[cut].any()
+    assert (grads[1] != unb[1])[cut].any() or (grads[2] != unb[2])[cut].any()
+    whole = ~cut
+    assert torch.equal(out[whole], unb_out[whole])
+    assert torch.equal(grads[1][whole], unb[1][whole])
+    assert torch.equal(grads[2][whole], unb[2][whole])
+    assert not out[no_tap].any() and not grads[1][no_tap].any() and not grads[2][no_tap].any()
 
 
 def _chunk_inputs(shape, dtype, seed, depart_px=None):
@@ -438,6 +552,28 @@ def test_chunk_kernels_refuse_a_chunk_that_does_not_fit():
         interp_cuda.interp_bwd_cuda(wide, y, y, y, "bicubic")
     assert (interp_cuda.launches, interp_cuda.bwd_launches, interp_cuda.chunk_launches,
             interp_cuda.chunk_bwd_launches) == n0
+
+
+@pytest.mark.gpu
+def test_band_kernels_refuse_a_row_that_does_not_fit():
+    """The banded pair refuses what its shared kernels refuse, a field whose
+    one row of one channel does not fit in shared memory (65536 fp32
+    columns, 256 KB), and nothing else of the plan: it raises and counts no
+    launch of any kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, W = 16, 65532
+    spec = (8, 16, 2, 2, 0.5)  # rpb, band_rows, halo_lo, pad = (R - H) / 2, bound
+    wide = torch.zeros(1, H + 4, W + 4, 1, device="cuda")
+    y = torch.full((1, H, W, 1), 3.5, device="cuda")
+    counts = lambda: (interp_cuda.launches, interp_cuda.bwd_launches,  # noqa: E731
+                      interp_cuda.band_launches, interp_cuda.band_bwd_launches)
+    n0 = counts()
+    with pytest.raises(RuntimeError, match="interp_band_fwd"):
+        interp_cuda.interp_band_fwd_cuda(wide, y, y, spec, "bicubic")
+    with pytest.raises(RuntimeError, match="interp_band_bwd"):
+        interp_cuda.interp_band_bwd_cuda(wide, y, y, y, spec, "bicubic")
+    assert counts() == n0
 
 
 @pytest.mark.gpu
