@@ -100,12 +100,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    (``EARLIER_DEVICE_MS``);
 10. the contraction kernels of the microbenchmark (``[kernel-mm]``):
     ``mm`` (float32 and bfloat16 operands, each variant's channel and
-    position blocks), ``mmT`` and ``bwd_mm`` against their plain versions at
-    the microbenchmark's shapes (B·V 768, P 2048, R 36, C 68) and at a tail
+    position blocks), ``mmT`` (bfloat16, the variant's, and float32) and
+    ``bwd_mm`` (bfloat16 operands on a bfloat16 and a float32 field, float32
+    operands on either) against their plain versions at the
+    microbenchmark's shapes (B·V 768, P 2048, R 36, C 68) and at a tail
     shape (V 77, P 1000, R 13, C 22), timed beside the same work through
-    ``torch.matmul`` and the bound; for each operand type, ``mm``'s outputs
+    ``torch.matmul`` / ``torch.bmm`` and the bound; ``bwd_mm`` run twice to
+    the same bits; for each operand type, ``mm``'s and ``mmT``'s outputs
     bitwise equal across the variants' and four more channel and position
-    blocks on one set of operands (its grid is its own);
+    blocks on one set of operands (their grid is their own);
 11. the dense interpolation path (``[forecast-dense]``): a 40-step float32
     rollout at 5.625° with ``compute.advection_impl=xla``, which launches no
     interpolation kernel, its first step against the plain path;
@@ -888,27 +891,31 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def check_mm_blocks(cdt_name: str, shape, variant_digests: dict) -> dict:
-    """``mm``'s output bitwise the same whatever the channel and position
-    blocks: the digests of the ``check_mm`` variants of this operand type
-    (same operands) and of one launch at each of ``MM_BLOCKS``."""
+def check_mm_blocks(kernel: str, cdt_name: str, shape, variant_digests: dict) -> dict:
+    """``mm``'s (``kernel`` ``interp_mmT``: ``mmT``'s) output bitwise the same
+    whatever the channel and position blocks: the digests of the
+    ``check_mm`` variants of this kernel and operand type (same operands)
+    and of one launch at each of ``MM_BLOCKS``."""
     import torch
 
     from paradis_torch.ops import interp_mm
 
-    w, f = mm_operands(shape, transposed=False)
+    transposed = kernel == "interp_mmT"
+    w, f = mm_operands(shape, transposed)
+    launch = interp_mm.mmT_cuda if transposed else interp_mm.mm_cuda
     digests = dict(variant_digests)
     cdt = getattr(torch, cdt_name)
     for vb, pb in MM_BLOCKS:
-        digests[f"vb{vb}-pb{pb}"] = digest(interp_mm.mm_cuda(w, f, cdt, vb, pb))
+        digests[f"vb{vb}-pb{pb}"] = digest(launch(w, f, cdt, vb, pb))
     same = len(set(digests.values())) == 1
-    return {"kernel": "interp_mm", "cdt": cdt_name, "shape": list(shape),
+    return {"kernel": kernel, "cdt": cdt_name, "shape": list(shape),
             "blocks": sorted(digests), "bitwise_equal_across_blocks": same, "ok": same}
 
 
-def check_mm(variant: str, shape, timed: bool) -> dict:
-    """The contraction kernel of a ``bench_interp.MM_VARIANTS`` variant
-    (``mm`` on wx [B,V,P,C], ``mmT`` on wxT [B,V,C,P]) against its plain
+def check_mm(variant: str, spec, shape, timed: bool) -> dict:
+    """The contraction kernel of a variant named as in
+    ``bench_interp.MM_VARIANTS``, ``spec`` its (cdt, vb, pb) (``mm`` on wx
+    [B,V,P,C], ``mmT`` on wxT [B,V,C,P]) against its plain
     version on normal operands; with ``timed``, its time beside the plain
     version's, ``torch.matmul`` doing the same work (the [P, R] products,
     then the sum over r) and the bound: wx, f read once and out written once,
@@ -917,9 +924,8 @@ def check_mm(variant: str, shape, timed: bool) -> dict:
     import torch
 
     from paradis_torch.ops import interp_mm
-    from paradis_torch.tools.bench_interp import MM_VARIANTS
 
-    cdt, vb, pb = MM_VARIANTS[variant]
+    cdt, vb, pb = spec
     transposed = variant.startswith("mmT")
     B, V, P, R, C = shape
     w, f = mm_operands(shape, transposed)
@@ -1552,21 +1558,26 @@ def main() -> int:
     B_, H_, W_, V_ = bench_interp.SHAPE
     bench_mm = (B_, V_, H_ * W_, H_ + 2 * bench_interp.PAD, W_ + 2 * bench_interp.PAD)
     mm_tail = (1, 77, 1000, 13, 22)
-    mm_checks = [check_mm(variant, shape, timed=shape == bench_mm)
-                 for variant in bench_interp.MM_VARIANTS for shape in (bench_mm, mm_tail)]
-    mm_checks += [check_mm_blocks(cdt_name, shape, {
+    # the variants, and mmT on float32 operands (no variant of the bench)
+    mm_variants = dict(bench_interp.MM_VARIANTS, mmT_f32_vb8=(torch.float32, 8, 1024))
+    mm_checks = [check_mm(variant, spec, shape, timed=shape == bench_mm)
+                 for variant, spec in mm_variants.items() for shape in (bench_mm, mm_tail)]
+    mm_checks += [check_mm_blocks(kernel, cdt_name, shape, {
         c["variant"]: c["out_sha256"] for c in mm_checks
-        if c["kernel"] == "interp_mm" and c["cdt"] == cdt_name and c["shape"] == list(shape)})
-        for cdt_name in ("float32", "bfloat16") for shape in (bench_mm, mm_tail)]
+        if c["kernel"] == kernel and c["cdt"] == cdt_name and c["shape"] == list(shape)})
+        for kernel in ("interp_mm", "interp_mmT") for cdt_name in ("float32", "bfloat16")
+        for shape in (bench_mm, mm_tail)]
     mm_checks += [check_bwd_mm("bfloat16", "bfloat16", bench_mm, timed=True),
+                  check_bwd_mm("float32", "bfloat16", bench_mm, timed=True),
                   check_bwd_mm("bfloat16", "bfloat16", mm_tail, timed=False),
-                  check_bwd_mm("float32", "float32", mm_tail, timed=False)]
+                  check_bwd_mm("float32", "float32", mm_tail, timed=False),
+                  check_bwd_mm("bfloat16", "float32", mm_tail, timed=False)]
     for c in mm_checks:
         log("[kernel-mm] " + json.dumps(c))
     bad = [c for c in mm_checks if not c["ok"]]
     if bad:
         raise SystemExit(f"contraction kernel disagrees with its plain version, or mm's "
-                         f"output with its own at another blocking: {bad}")
+                         f"or mmT's output with its own at another blocking: {bad}")
 
     runs, hr_runs, first_step = {}, {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
@@ -1768,6 +1779,9 @@ def main() -> int:
     in_run = bench["launches_per_run"]
     for c in mm_checks:
         if "ms" not in c:
+            continue
+        # the cases the microbenchmark runs: its variants, and bwd_mm on a bf16 field
+        if not (c["variant"] in in_run if "variant" in c else c["field_dtype"] == "bfloat16"):
             continue
         if "variant" in c:
             name, replaces = c["kernel"], MMT_REPLACES if c["kernel"] == "interp_mmT" else MM_REPLACES

@@ -21,8 +21,15 @@ it, products and sums are float32 (bf16 × bf16 → f32), outputs float32.
 ``mm_cuda``, ``mmT_cuda`` and ``bwd_mm_cuda`` launch the kernels of
 ``csrc/interp_mm.cu`` on contiguous CUDA tensors or raise; ``mm``, ``mmT``
 and ``bwd_mm`` send CPU tensors to the plain versions and any other tensor
-to the kernels.  ``mm_launches``, ``mmT_launches`` and ``bwd_mm_launches``
-count the launches of the three wrappers.
+to the kernels.  ``mm`` and ``mmT`` share one kernel on its own persistent
+grid (work items of a plane and 128 positions, tiles streamed by TMA into a
+ring in shared memory), so the TPU's channel and position blocks shape
+nothing; bf16 operands run on the tensor cores (``mma.sync``), float32 on
+FMAs.  ``bwd_mm`` is one block a plane: with bf16 operands both of its
+products on the tensor cores, with float32 operands on FMAs; d_field is
+summed in a fixed order, with no atomics.  ``mm_launches``,
+``mmT_launches`` and ``bwd_mm_launches`` count the launches of the three
+wrappers.
 """
 
 from __future__ import annotations
@@ -125,8 +132,9 @@ def mm_cuda(wx: torch.Tensor, f: torch.Tensor, cdt: torch.dtype = torch.float32,
 def mmT_cuda(wxT: torch.Tensor, f: torch.Tensor, cdt: torch.dtype = torch.bfloat16, vb: int = 8,
              pb: int = 1024) -> torch.Tensor:
     """Launch the transposed contraction kernel on float32 wxT [B,V,C,P] and f
-    [B,V,R,C]: ``mmT_plain``'s function, a block taking ``vb`` planes and
-    ``pb`` positions."""
+    [B,V,R,C]: ``mmT_plain``'s function on ``mm_cuda``'s persistent grid
+    (each 128-position tile copied as C rows of wxT).  ``vb`` and ``pb``
+    must be positive and shape nothing: every blocking gives the same bits."""
     global mmT_launches
     if wxT.dim() != 4 or f.dim() != 4 or wxT.shape[:3] != (*f.shape[:2], f.shape[3]):
         raise ValueError(f"expected wxT [B,V,C,P] and f [B,V,R,C]; got {tuple(wxT.shape)}, "
@@ -140,7 +148,10 @@ def bwd_mm_cuda(field_t: torch.Tensor, py: torch.Tensor, px: torch.Tensor, g: to
                 cdt: torch.dtype = torch.bfloat16):
     """Launch the dense-backward contraction kernel: field_t [B,V,R,C] float32
     or bfloat16, py, px, g [B,V,P] float32 → ``bwd_mm_plain``'s
-    ``(d_field, d_py, d_px)``, float32.  One block a plane; no atomics."""
+    ``(d_field, d_py, d_px)``, float32.  One block a plane; no atomics.
+    With bf16 ``cdt`` both products (tt and d_field) run on the tensor
+    cores, their operands formed in registers from the positions; with
+    float32 on FMAs."""
     global bwd_mm_launches
     if field_t.dim() != 4 or py.dim() != 3 or py.shape[:2] != field_t.shape[:2]:
         raise ValueError(f"expected field [B,V,R,C] and positions [B,V,P]; got "

@@ -620,16 +620,18 @@ MM_TOL = 2e-5
                          ids=["vb8", "vb32", "vb128", "vb5-pb300"])
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68),
-                                   (1, 133, 2048, 36, 68), (1, 16, 1000, 36, 68)],
-                         ids=["tail", "bench-rows", "uneven-grid", "p-tail"])
+                                   (1, 133, 2048, 36, 68), (1, 16, 1000, 36, 68),
+                                   (1, 16, 2047, 36, 68)],
+                         ids=["tail", "bench-rows", "uneven-grid", "p-tail", "p-odd"])
 def test_mm_kernels_match_plain_on_card(shape, cdt, blocks):
     """The contraction kernels (wx and its transposed layout) against their
     plain versions, where V is no multiple of the channel block and P no
-    multiple of the position tile (the tail, rows not 16-byte aligned), at
-    the bench's R, C, P, with 133 planes (mm's persistent blocks get unequal
-    counts of tiles) and with P no multiple of mm's 128-position tile at the
-    bench's C.  mm's grid is its own: its output is bitwise the same for
-    every channel and position block."""
+    multiple of the position tile (the tail, mm's rows not 16-byte aligned),
+    at the bench's R, C, P, with 133 planes (the persistent blocks get
+    unequal counts of tiles), with P no multiple of the 128-position tile at
+    the bench's C, and with P odd (mmT's rows of wxT not 16-byte aligned, so
+    its tiles are copied by plain loads).  Both kernels run their own grid:
+    each output is bitwise the same for every channel and position block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from paradis_torch.ops import interp_mm
@@ -652,21 +654,25 @@ def test_mm_kernels_match_plain_on_card(shape, cdt, blocks):
         assert out.shape == ref.shape == (B, V, P) and torch.isfinite(out).all()
         err = float((out - ref).abs().max()) / float(ref.abs().max())
         assert err <= MM_TOL, (kernel.__name__, err)
-        if kernel is interp_mm.mm_cuda:
-            assert torch.equal(out, kernel(w, f, tdt, 8, 1024))
+        assert torch.equal(out, kernel(w, f, tdt, 8, 1024)), kernel.__name__
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("field_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68)],
-                         ids=["tail", "bench-rows"])
+@pytest.mark.parametrize("shape", [(1, 77, 1000, 13, 22), (1, 16, 2048, 36, 68),
+                                   (1, 133, 2048, 36, 68), (1, 16, 1000, 36, 68),
+                                   (1, 16, 2047, 36, 68), (1, 8, 300, 45, 90)],
+                         ids=["tail", "bench-rows", "uneven-grid", "p-tail", "p-odd", "groups"])
 def test_bwd_mm_kernel_matches_plain_on_card(shape, field_dtype, cdt):
     """The dense-backward contraction kernel against its plain version
     (``MM_TOL`` of each output's largest value), run twice to the same bits
-    (d_field is summed in one block's shared memory, no atomics), and d_px
-    equal to d_py up to float order (the stand-in weights' second half is
-    half the first)."""
+    (d_field is summed in one block a plane, in a fixed order, no atomics),
+    and d_px equal to d_py up to float order (the stand-in weights' second
+    half is half the first).  Also with 133 planes (no multiple of the
+    blocks resident on the card), with P no multiple of the 16-position tile
+    (1000, 2047) at the bench's R, C, and with R > 40 and C > 80 (the bf16
+    kernel makes a pass over P for each group of d_field tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from paradis_torch.ops import interp_mm
