@@ -73,6 +73,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
    step launches the banded forward 16 times (8, and 8 in the backward's
    replay), the banded backward 8 times and the unbanded kernels never.
+   ``[train-remat]``: the same bf16 1.40625° steps under
+   ``compute.remat_policy=advect`` and ``advect_pos`` (the replay keeps the
+   interpolation's output, and its departure positions), each launching the
+   banded forward only 8 times a step, with its device ms, busy share,
+   launches and peak memory beside the ``none`` run's.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -88,8 +93,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    forward bitwise, and d_py, d_px bitwise), timed on the departure-like
    positions beside the unbanded and banded kernels, the plain version,
    ``F.grid_sample`` and the bound; and the weight-generation pair
-   (``[kernel-gen]``) against its plain versions at the microbenchmark's
-   shapes and a tail shape, timed beside its bound;
+   (``[kernel-gen]``) against its plain versions, bicubic and bilinear, at
+   the microbenchmark's shapes (timed beside its bound) and, untimed, at a
+   tail shape whose element count is no multiple of 4 and on positions one
+   element into their buffers (not 16-byte aligned);
 9. the same serving and training paths with ``PARADIS_INTERP_CHUNK`` set
    for the phase: a 40-step float32 rollout and bfloat16 train steps at
    5.625° (``rw = 8``) and at 1.40625° (``rw = 32``, no band, the train
@@ -816,47 +823,56 @@ def check_train_bwd_kernel(dtype_name: str, captured: list) -> dict:
     return res
 
 
-def gen_inputs(shape, seed: int):
+def gen_inputs(shape, seed: int, offset: int = 0):
     """Positions [B, H, W, V] over the padded grid R = H + 4, C = W + 4 and
-    up to 3 px beyond it, with a NaN and an inf among them."""
+    up to 3 px beyond it, with a NaN and an inf among them; with ``offset``,
+    views that start that many elements into their buffers (so no longer
+    16-byte aligned)."""
     import torch
 
     B, H, W, V = shape
     R, C = H + 4, W + 4
+    n = B * H * W * V
     g = torch.Generator(device="cuda").manual_seed(seed)
-    py = torch.rand(B, H, W, V, generator=g, device="cuda") * (R + 5) - 3
-    px = torch.rand(B, H, W, V, generator=g, device="cuda") * (C + 5) - 3
+    py = (torch.rand(n + offset, generator=g, device="cuda") * (R + 5) - 3)[offset:].view(shape)
+    px = (torch.rand(n + offset, generator=g, device="cuda") * (C + 5) - 3)[offset:].view(shape)
     py.view(-1)[0] = float("nan")
     px.view(-1)[1] = float("inf")
     return py, px, R, C
 
 
-def check_gen(derivative: bool, shape, timed: bool) -> dict:
+def check_gen(derivative: bool, shape, timed: bool, mode: str = "bicubic",
+              offset: int = 0) -> dict:
     """The weight-generation kernel (``derivative``: with K′) against its
-    plain version; with ``timed``, its time beside the plain version's and
-    the bound: 8 bytes read and 4 written per element, against the flops of
-    the tap weights (and derivatives) of both axes over the fp32 rate."""
+    plain version, on positions ``offset`` elements into their buffers;
+    with ``timed``, its time beside the plain version's and the bound: 8
+    bytes read and 4 written per element, against the flops of the tap
+    weights (and derivatives) of both axes over the fp32 rate."""
     import torch
 
     from paradis_torch.ops.interp_gen import bwd_gen_cuda, bwd_gen_plain, gen_cuda, gen_plain
 
-    py, px, R, C = gen_inputs(shape, seed=sum(shape) + derivative)
+    py, px, R, C = gen_inputs(shape, seed=sum(shape) + derivative, offset=offset)
     kernel_fn, plain_fn = (bwd_gen_cuda, bwd_gen_plain) if derivative else (gen_cuda, gen_plain)
-    out = kernel_fn(py, px, R, C, "bicubic")
-    ref = plain_fn(py, px, R, C, "bicubic")
+    out = kernel_fn(py, px, R, C, mode)
+    ref = plain_fn(py, px, R, C, mode)
     torch.cuda.synchronize()
     diff = (out - ref).abs()
-    res = {"derivative": derivative, "shape": list(shape), "R": R, "C": C,
+    res = {"derivative": derivative, "mode": mode, "shape": list(shape), "R": R, "C": C,
+           "total_mod_4": py.numel() % 4, "aligned_16": py.data_ptr() % 16 == 0,
            "max_abs_err": float(diff.max()), "limit": GEN_TOL,
            "ok": bool(torch.isfinite(out).all()) and bool((diff <= GEN_TOL).all())}
     if timed:
-        res["ms"] = time_ms(lambda: kernel_fn(py, px, R, C, "bicubic"), iters=200)
-        res["plain_ms"] = time_ms(lambda: plain_fn(py, px, R, C, "bicubic"), iters=20)
+        res["ms"] = time_ms(lambda: kernel_fn(py, px, R, C, mode), iters=200)
+        res["plain_ms"] = time_ms(lambda: plain_fn(py, px, R, C, mode), iters=20)
         res["library_ms"] = None  # no one PyTorch call computes it
         n = py.numel()
         # per axis 4 cubic weights (~6 flops each) and 4 compares and adds;
-        # with the derivatives 4 more polynomials (~8 flops) and adds
-        flops = n * (2 * (24 + 8 + (36 if derivative else 0)) + (3 if derivative else 1))
+        # with the derivatives 4 more polynomials (~8 flops) and adds;
+        # bilinear 2 weights and 2 compares and adds, and 2 selects
+        taps = (24 + 8 + (36 if derivative else 0)) if mode == "bicubic" \
+            else (2 + 4 + (4 if derivative else 0))
+        flops = n * (2 * taps + (3 if derivative else 1))
         bytes_ms = 3 * n * 4 / PEAK_BYTES_PER_S * 1e3
         ops_ms = flops / PEAK_FP32_FLOPS * 1e3
         res["bound_ms"], res["bound_by"] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
@@ -1382,13 +1398,15 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     opt_profile = profile_steps(optimizer.step, 1, opt_s)
 
     # the path's forward and backward kernel once per layer and forecast
-    # step; the forward twice under checkpointing (the replay)
-    fwd = n_layers * S * (2 if model.gradient_checkpointing else 1)
+    # step; the forward twice under checkpointing with remat_policy none (the
+    # replay), once under advect and advect_pos (the replay keeps its output)
+    policy = model.resolve_remat_policy() if model.gradient_checkpointing else None
+    fwd = n_layers * S * (2 if policy in ("none", "") else 1)
     expected = expected_launches(fwd, n_layers * S, banded, chunk_rw)
     res = {
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": overrides,
         "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
-        "gradient_checkpointing": model.gradient_checkpointing,
+        "gradient_checkpointing": model.gradient_checkpointing, "remat_policy": policy,
         "model_dtype": str(model.dtype),
         "optimizer": optimizer.name, "ns_dtype": str(optimizer.ns_dtype), "S": S,
         "layers": n_layers, "params": sum(p.numel() for p in model.parameters()),
@@ -1544,9 +1562,14 @@ def main() -> int:
     # the weight-generation pair at the microbenchmark's shapes and a tail
     from paradis_torch.tools import bench_interp
 
-    gen_checks = [check_gen(derivative, shape, timed=shape == bench_interp.SHAPE)
-                  for derivative in (False, True)
-                  for shape in (bench_interp.SHAPE, (1, 9, 15, 77))]
+    # timed at the microbenchmark's shape in both modes; untimed at a tail
+    # shape (10,395 elements, no multiple of 4) and on views one element into
+    # their buffers (no 16-byte alignment: the scalar kernel)
+    gen_checks = [check_gen(derivative, shape, timed=shape == bench_interp.SHAPE and not offset,
+                            mode=mode, offset=offset)
+                  for derivative in (False, True) for mode in ("bicubic", "bilinear")
+                  for shape, offset in ((bench_interp.SHAPE, 0), ((1, 9, 15, 77), 0),
+                                        (bench_interp.SHAPE, 1), ((1, 9, 15, 77), 1))]
     for c in gen_checks:
         log("[kernel-gen] " + json.dumps(c))
     bad = [c for c in gen_checks if not c["ok"]]
@@ -1634,6 +1657,25 @@ def main() -> int:
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
 
+    # the 1.40625° bf16 train step under the policies that keep the
+    # interpolation's output (and its positions) through the replay, beside
+    # none's run above
+    remat_trains = {"none": hr_trains["bfloat16"]}
+    for policy in ("advect", "advect_pos"):
+        overrides = HR_TRAIN_OVERRIDES + [f"compute.remat_policy={policy}"]
+        res = run_train("bfloat16", card, HR, overrides, HR_TRAIN_STEPS, HR_GRAD_TOL)
+        log("[train-remat] " + json.dumps(res))
+        if not res["ok"] or res["remat_policy"] != policy:
+            raise SystemExit(f"train steps under remat_policy {policy} failed their checks: {res}")
+        remat_trains[policy] = res
+    log("[train-remat] " + json.dumps({
+        policy: {"device_ms_per_step": r["profile"]["device_ms_per_step"],
+                 "busy_share": r["profile"]["busy_share"],
+                 "device_launches_per_step": r["profile"].get("device_launches_per_step"),
+                 "interp_launches_per_step": r["launches_per_step"][0],
+                 "train_steps_per_s": r["train_steps_per_s"], "peak_mem_gb": r["peak_mem_gb"]}
+        for policy, r in remat_trains.items()}))
+
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
                         for dtype_name in ("bfloat16", "float32")]
@@ -1680,6 +1722,9 @@ def main() -> int:
                       for k in hr_trains})
     device_ms.update({f"train-chunk bfloat16 {g[0]}x{g[1]}": r["profile"]["device_ms_per_step"]
                       for g, r in chunk_trains.items()})
+    device_ms.update({f"train bfloat16 {HR[0]}x{HR[1]} remat {p}":
+                      r["profile"]["device_ms_per_step"]
+                      for p, r in remat_trains.items() if p != "none"})
     log("[device-ms] " + json.dumps({"device_ms_per_step": device_ms,
                                      "earlier_device_ms_per_step": EARLIER_DEVICE_MS}))
 
@@ -1768,7 +1813,7 @@ def main() -> int:
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "chunk_ms": c["chunk_ms"]})
     for c in gen_checks:
-        if "ms" in c:
+        if "ms" in c and c["mode"] == "bicubic":
             name = "interp_bwd_gen" if c["derivative"] else "interp_gen"
             kernels.append({"name": f"{name}[bicubic,float32]", "route": "cuda",
                             "source": GEN_SOURCE,

@@ -15,16 +15,24 @@ trains (``train/step.py``): gradients flow through every block, and through
 the interpolation by its backward kernel on a card.  ``band_bound_rad``
 (``compute.interp_band_rad``) bounds the departure rows and so licenses the
 row-banded interpolation kernels.  ``gradient_checkpointing`` recomputes
-each physics layer in the backward (the JAX package's ``remat_policy:
-none``).  Spatial sharding constraints are not ported.
+each physics layer in the backward, all of it under ``remat_policy: none``;
+``advect`` keeps the interpolation's output and ``advect_pos`` also its
+departure positions (the JAX package's policies, as a selective-checkpoint
+policy over the custom ops of ``ops/interp_cuda.py``, ``ops/interp_dense.py``
+and ``ops/advection.py``).  Spatial sharding constraints are not ported.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
+import os
+
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from paradis_torch import resolve_device
 from paradis_torch.ops.advection import INTERP_IMPLS, NeuralSemiLagrangian
@@ -43,16 +51,40 @@ def get_scaled_timestep(dt_seconds: float) -> float:
 
 
 def check_remat_policy(name) -> None:
-    """``compute.remat_policy`` under gradient checkpointing: only ``none``
-    (full recomputation of each physics layer) is ported."""
-    if name in ("", "none", None):
-        return
-    if name in ("advect", "advect_pos"):
-        raise NotImplementedError(
-            f"compute.remat_policy={name!r} (save the interpolation output"
-            f"{' and the departure positions' if name == 'advect_pos' else ''} through "
-            f"the recomputation) is not ported yet: see ROADMAP.md Queue 1")
-    raise ValueError(f"compute.remat_policy must be none|advect|advect_pos, got {name!r}")
+    """``compute.remat_policy`` under gradient checkpointing: ``none`` (full
+    recomputation of each physics layer), ``advect`` or ``advect_pos``."""
+    if name not in ("", "none", None, "advect", "advect_pos"):
+        raise ValueError(f"compute.remat_policy must be none|advect|advect_pos, got {name!r}")
+
+
+def _saved_ops(name) -> frozenset:
+    """The ops whose outputs a policy keeps through the recomputation: under
+    ``advect`` the interpolation's (the gather pair's forward, or the dense
+    path's), under ``advect_pos`` also the departure positions that the
+    interpolation consumes (the JAX package's names ``advect_interp`` and
+    ``advect_pos``)."""
+    ops = torch.ops.paradis
+    if name == "advect":
+        return frozenset((ops.interp.default, ops.interp_dense.default))
+    if name == "advect_pos":
+        return _saved_ops("advect") | {ops.departure_positions.default}
+    return frozenset()
+
+
+def _save_policy(saved: frozenset, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context_fn(name):
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for a
+    ``compute.remat_policy``: none recomputes everything; ``advect`` and
+    ``advect_pos`` save ``_saved_ops``' outputs and recompute the rest."""
+    check_remat_policy(name)
+    saved = _saved_ops(name)
+    if not saved:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_policy, saved))
 
 
 def band_bound_pixels(band_bound_rad, lat_deg, coarsening_factor: int = 1):
@@ -143,6 +175,8 @@ class Paradis(nn.Module):
         self.n_static = n_static
         self.dtype = dtype
         self.gradient_checkpointing = gradient_checkpointing
+        self.remat_policy = remat_policy
+        self._remat_override = remat_policy  # the last policy resolve_remat_policy saw
         self.band_max_dy_pix = band_bound_pixels(band_bound_rad, lat_deg, coarsening_factor)
         self.mesh_size = (len(lat_deg), len(lon_deg))
         H, W = self.mesh_size
@@ -262,6 +296,20 @@ class Paradis(nn.Module):
         for layer in self.layers:
             layer.advection.impl = impl
 
+    def resolve_remat_policy(self) -> str:
+        """The policy in force: ``PARADIS_REMAT_POLICY`` where set, else
+        ``compute.remat_policy``, read at every checkpointed forward as the
+        JAX package reads it at every trace, with a logged warning where the
+        environment overrides the config (once for each new override)."""
+        name = os.environ.get("PARADIS_REMAT_POLICY", self.remat_policy)
+        check_remat_policy(name)
+        if name != self.remat_policy and name != self._remat_override:
+            logging.getLogger(__name__).warning(
+                "PARADIS_REMAT_POLICY=%s overrides compute.remat_policy=%s",
+                name, self.remat_policy)
+        self._remat_override = name
+        return name
+
     def _static_encoder(self, x: torch.Tensor) -> torch.Tensor:
         """SepConv(64, k7) → SiLU → geo-pad(3) + depthwise 7×7 → SiLU →
         SepConv(STATIC_DIM, k5), all with torch-default init."""
@@ -281,10 +329,12 @@ class Paradis(nn.Module):
         hidden = self.downsample(hidden)
         hidden_static = self.downsample(hidden_static)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        if remat:
+            context_fn = remat_context_fn(self.resolve_remat_policy())
         for layer in self.layers:
             if remat:
                 hidden = checkpoint(layer, hidden, hidden_static, self.lat_grid, self.lon_grid,
-                                    use_reentrant=False)
+                                    use_reentrant=False, context_fn=context_fn)
             else:
                 hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
         hidden = periodic_upsample(hidden, H, W) + skip

@@ -19,8 +19,8 @@ from paradis_torch.ops.blocks import GMBlock
 from paradis_torch.ops.interp import check_mode
 from paradis_torch.ops.interp_band import band_spec
 from paradis_torch.ops.interp_chunk import chunk_rows as resolve_chunk_rows
-from paradis_torch.ops.interp_cuda import Interp
-from paradis_torch.ops.interp_dense import InterpDense
+from paradis_torch.ops.interp_cuda import interp
+from paradis_torch.ops.interp_dense import interp_dense
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
 
@@ -56,22 +56,80 @@ def departure_pixel_coords(u, v, dt: float, lat_grid: torch.Tensor, lon_grid: to
     return pix_y, pix_x
 
 
+def _row_bounds(pix_y: torch.Tensor, row_pad: int, max_dy: float):
+    """``(lo, hi)`` [1, H, 1, 1]: each arrival row in the padded field ±
+    ``max_dy`` pixels."""
+    H = pix_y.shape[1]
+    arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + row_pad
+    return arr - max_dy, arr + max_dy
+
+
+def _clamp_rows(pix_y: torch.Tensor, row_pad: int, max_dy: float) -> torch.Tensor:
+    return torch.clamp(pix_y, *_row_bounds(pix_y, row_pad, max_dy))
+
+
+@torch.library.custom_op("paradis::departure_positions", mutates_args=())
+def departure_positions(pix_y: torch.Tensor, pix_x: torch.Tensor, shift: int, row_pad: int,
+                        max_dy: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The interpolation's positions, float32: both shifted by ``shift``
+    pixels into the padded field, and with ``max_dy`` the rows clamped to
+    their arrival row (``row_pad`` + its index) ± ``max_dy``.  Its own op so
+    that ``remat_policy: advect_pos`` can save what the interpolation
+    consumes."""
+    pix_y = pix_y.float() + shift
+    pix_x = pix_x.float() + shift
+    if max_dy is not None:
+        pix_y = _clamp_rows(pix_y, row_pad, max_dy)
+    return pix_y, pix_x
+
+
+@departure_positions.register_fake
+def _positions_fake(pix_y, pix_x, shift, row_pad, max_dy):
+    return (pix_y.new_empty(pix_y.shape, dtype=torch.float32),
+            pix_x.new_empty(pix_x.shape, dtype=torch.float32))
+
+
+def _positions_setup(ctx, inputs, output):
+    pix_y, _, shift, row_pad, max_dy = inputs
+    ctx.args = (shift, row_pad, max_dy)
+    ctx.save_for_backward(pix_y if max_dy is not None else None)
+
+
+def _positions_backward(ctx, d_py, d_px):
+    """d_py zero where the clamp binds (``torch.clamp``'s gradient, on the
+    shifted rows before the clamp), else passed through, as is d_px."""
+    shift, row_pad, max_dy = ctx.args
+    if max_dy is not None:
+        (pix_y,) = ctx.saved_tensors
+        pix_y = pix_y.float() + shift
+        lo, hi = _row_bounds(pix_y, row_pad, max_dy)
+        d_py = torch.where((pix_y >= lo) & (pix_y <= hi), d_py, 0.0)
+    return d_py, d_px, None, None, None
+
+
+departure_positions.register_autograd(_positions_backward, setup_context=_positions_setup)
+
+
 def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
-                max_dy_pix: float | None = None, chunk_rows: int | None = None):
+                max_dy_pix: float | None = None, chunk_rows: int | None = None,
+                shift: int = 0):
     """Backend dispatch for the gather-interpolation, forward and backward.
 
-    ``auto`` and ``plain`` go through the autograd pairing
-    ``interp_cuda.Interp``.  ``auto`` sends a tensor on the CPU to the plain
+    ``auto`` and ``plain`` go through the custom op ``paradis::interp``
+    (``interp_cuda.interp``).  ``auto`` sends a tensor on the CPU to the plain
     versions and any other tensor to the hand-written kernels, which launch
     or raise: there is no fallback.  ``plain`` forces the plain forward and the plain backward on
     any device (the reference the kernels are held against).  ``xla`` is the
     JAX package's dense path (``compute.advection_impl: xla``): the dense
-    contraction of ``interp_dense.InterpDense`` on any device, which, as
-    there, takes no band plan and no chunk size.
+    contraction of ``paradis::interp_dense`` (``interp_dense.interp_dense``)
+    on any device, which, as there, takes no band plan and no chunk size.
 
-    ``max_dy_pix`` is part of the op's contract on every backend: when given,
-    departure rows are clamped to ±``max_dy_pix`` of their arrival row (once,
-    here; d_py is zero where the clamp binds).  Where the band plan
+    ``shift`` moves the positions into the padded field (the model passes
+    its pad).  ``max_dy_pix`` is part of the op's contract on every backend:
+    when given, departure rows are clamped to ±``max_dy_pix`` of their
+    arrival row (once, here; d_py is zero where the clamp binds).  Shift and
+    clamp are the op ``paradis::departure_positions``, whose outputs are
+    what the interpolation consumes.  Where the band plan
     (``interp_band.band_spec``) then finds banding worth it, the pairing runs
     the row-banded kernels (or their plain versions).  Without a band plan,
     a chunk size (``chunk_rows``, else ``PARADIS_INTERP_CHUNK``, read on every
@@ -83,15 +141,14 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
         raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
     _, H, W, _ = pix_y.shape
     R = field.shape[1]
-    if max_dy_pix is not None:
-        pad = (R - H) // 2
-        arr = torch.arange(H, dtype=torch.float32, device=pix_y.device).view(1, H, 1, 1) + pad
-        pix_y = torch.clamp(pix_y.float(), arr - max_dy_pix, arr + max_dy_pix)
+    if shift or max_dy_pix is not None:
+        pix_y, pix_x = departure_positions(pix_y, pix_x, shift, (R - H) // 2,
+                                           None if max_dy_pix is None else float(max_dy_pix))
     if impl == "xla":
-        return InterpDense.apply(field, pix_y, pix_x, mode)
+        return interp_dense(field, pix_y, pix_x, mode)
     spec = None if max_dy_pix is None else band_spec(H, W, R, mode, max_dy_pix)
     rw = 0 if spec is not None else resolve_chunk_rows(R, chunk_rows)
-    return Interp.apply(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
+    return interp(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
 
 
 class NeuralSemiLagrangian(nn.Module):
@@ -126,6 +183,6 @@ class NeuralSemiLagrangian(nn.Module):
         proj = enforce_pole_continuity(self.down_projection(hidden))
         pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,
                                               fast_trig=self.fast_trig)
-        out = interpolate(geocyclic_pad(proj, pad), pix_y + pad, pix_x + pad,
-                          self.interpolation, self.impl, max_dy_pix=self.band_max_dy_pix)
+        out = interpolate(geocyclic_pad(proj, pad), pix_y, pix_x, self.interpolation,
+                          self.impl, max_dy_pix=self.band_max_dy_pix, shift=pad)
         return self.up_projection(enforce_pole_continuity(out))

@@ -1,5 +1,5 @@
 """Wrappers of the hand-written Hopper interpolation kernels, and their
-autograd pairing.
+pairing as custom ops.
 
 ``interp_fwd_cuda`` (``csrc/interp_fwd.cu``) replaces the TPU kernel
 ``paradis_tpu/ops/interp_pallas.py:_fwd_kernel`` (``interp_fwd_route`` says
@@ -14,11 +14,16 @@ row-chunked forwards, and the unbanded one on a field too large to keep
 resident, launch one window kernel (``csrc/interp_stage.cuh``); the three
 backwards launch one row-slab kernel (``csrc/interp_stage_bwd.cuh``); the
 banded entry points with a per-position band filter.  Each wrapper launches
-its kernel on CUDA tensors or raises: there is no fallback.  ``Interp`` is the
-``torch.autograd.Function`` around a pair: with a band plan the banded
-kernels, else with a chunk size the row-chunked kernels, else the unbanded
-ones; on CPU tensors (or when asked for ``plain``) the plain versions of
-``ops/interp.py``, ``ops/interp_band.py`` and ``ops/interp_chunk.py``.
+its kernel on CUDA tensors or raises: there is no fallback.  The pairing is
+two ``torch.library`` custom ops, ``paradis::interp`` (``interp_op``) and
+``paradis::interp_bwd`` (``interp_bwd_op``), tied by
+``register_autograd`` and each with a fake implementation (shapes and
+dtypes, no launch), so that a selective-checkpoint policy can name the
+forward and ``torch.export`` can trace both; ``interp`` calls the forward.
+With a band plan they run the banded kernels, else with a chunk size the
+row-chunked kernels, else the unbanded ones; on CPU tensors (or when asked
+for ``plain``) the plain versions of ``ops/interp.py``,
+``ops/interp_band.py`` and ``ops/interp_chunk.py``.
 
 ``launches``, ``bwd_launches``, ``band_launches``, ``band_bwd_launches``,
 ``chunk_launches`` and ``chunk_bwd_launches`` count the launches made by the
@@ -325,46 +330,86 @@ def interp_chunk_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch
     return d_field, d_py, d_px
 
 
-class Interp(torch.autograd.Function):
-    """Gather-interpolation with the backward of the JAX package's VJP.
+def _spec(band: list[int], max_dy: float):
+    """The band plan of ``interp_band.band_spec`` from the ops' arguments
+    (None for an empty ``band``)."""
+    return (*band, max_dy) if band else None
 
-    ``Interp.apply(field, pix_y, pix_x, mode, plain, spec, chunk)``: with
+
+@torch.library.custom_op("paradis::interp", mutates_args=())
+def interp_op(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor, mode: str,
+              plain: bool, band: list[int], max_dy: float, chunk: int) -> torch.Tensor:
+    """The forward op: with a band plan (``band``, the four integers of
+    ``band_spec``, and ``max_dy``; ``band`` empty for none) the row-banded
+    kernel, else with ``chunk`` > 0 rows the row-chunked kernel, else the
+    unbanded one (the priority of ``_fwd_tv``); the plain versions on CPU
+    tensors or with ``plain``."""
+    spec = _spec(band, max_dy)
+    use_plain = plain or field.device.type == "cpu"
+    if spec is not None:
+        fwd = interp_band_plain if use_plain else interp_band_fwd_cuda
+        return fwd(field, pix_y, pix_x, spec, mode)
+    if chunk:
+        fwd = interp_chunk_plain if use_plain else interp_chunk_fwd_cuda
+        return fwd(field, pix_y, pix_x, chunk, mode)
+    if use_plain:
+        return interp_plain(field, pix_y, pix_x, mode)
+    return interp_fwd_cuda(field, pix_y, pix_x, mode)
+
+
+@torch.library.custom_op("paradis::interp_bwd", mutates_args=())
+def interp_bwd_op(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                  g: torch.Tensor, mode: str, plain: bool, band: list[int], max_dy: float,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward op for the cotangent ``g``: ``(d_field, d_py, d_px)`` of
+    the pair ``interp_op``'s arguments select."""
+    spec = _spec(band, max_dy)
+    use_plain = plain or field.device.type == "cpu"
+    g = g.contiguous()
+    if spec is not None:
+        bwd = interp_band_bwd_plain if use_plain else interp_band_bwd_cuda
+        return bwd(field, pix_y, pix_x, g, spec, mode)
+    if chunk:
+        bwd = interp_chunk_bwd_plain if use_plain else interp_chunk_bwd_cuda
+        return bwd(field, pix_y, pix_x, g, chunk, mode)
+    bwd = interp_bwd_plain if use_plain else interp_bwd_cuda
+    return bwd(field, pix_y, pix_x, g, mode)
+
+
+@interp_op.register_fake
+def _interp_fake(field, pix_y, pix_x, mode, plain, band, max_dy, chunk):
+    return field.new_empty(pix_y.shape)
+
+
+@interp_bwd_op.register_fake
+def _interp_bwd_fake(field, pix_y, pix_x, g, mode, plain, band, max_dy, chunk):
+    return (field.new_empty(field.shape), pix_y.new_empty(pix_y.shape, dtype=torch.float32),
+            pix_y.new_empty(pix_y.shape, dtype=torch.float32))
+
+
+def _interp_setup(ctx, inputs, output):
+    field, pix_y, pix_x, *args = inputs
+    ctx.save_for_backward(field, pix_y, pix_x)
+    ctx.args = args
+
+
+def _interp_backward(ctx, g):
+    d_field, d_py, d_px = interp_bwd_op(*ctx.saved_tensors, g, *ctx.args)
+    return d_field, d_py, d_px, None, None, None, None, None
+
+
+interp_op.register_autograd(_interp_backward, setup_context=_interp_setup)
+
+
+def interp(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor, mode: str,
+           plain: bool = False, spec=None, chunk: int = 0) -> torch.Tensor:
+    """Gather-interpolation with the backward of the JAX package's VJP,
+    through the ops ``paradis::interp`` / ``paradis::interp_bwd``: with
     ``plain`` false a CUDA tensor goes to the kernels and a CPU tensor to the
     plain versions; with ``plain`` true the plain versions run on any device.
-    The pair, in the priority of ``_fwd_tv`` / ``_bwd_tv``: a band plan
-    ``spec`` (``interp_band.band_spec``) selects the row-banded pair; else
-    ``chunk`` > 0 rows the row-chunked pair; else the unbanded one.  The
-    backward is not differentiable again (the kernels have no backward of
-    their own).
-    """
-
-    @staticmethod
-    def forward(ctx, field, pix_y, pix_x, mode: str, plain: bool, spec=None, chunk: int = 0):
-        use_plain = plain or field.device.type == "cpu"
-        ctx.mode, ctx.plain, ctx.spec, ctx.chunk = mode, use_plain, spec, chunk
-        ctx.save_for_backward(field, pix_y, pix_x)
-        if spec is not None:
-            fwd = interp_band_plain if use_plain else interp_band_fwd_cuda
-            return fwd(field, pix_y, pix_x, spec, mode)
-        if chunk:
-            fwd = interp_chunk_plain if use_plain else interp_chunk_fwd_cuda
-            return fwd(field, pix_y, pix_x, chunk, mode)
-        if use_plain:
-            return interp_plain(field, pix_y, pix_x, mode)
-        return interp_fwd_cuda(field, pix_y, pix_x, mode)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        field, pix_y, pix_x = ctx.saved_tensors
-        g = g.contiguous()
-        if ctx.spec is not None:
-            bwd = interp_band_bwd_plain if ctx.plain else interp_band_bwd_cuda
-            d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.spec, ctx.mode)
-        elif ctx.chunk:
-            bwd = interp_chunk_bwd_plain if ctx.plain else interp_chunk_bwd_cuda
-            d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.chunk, ctx.mode)
-        else:
-            bwd = interp_bwd_plain if ctx.plain else interp_bwd_cuda
-            d_field, d_py, d_px = bwd(field, pix_y, pix_x, g, ctx.mode)
-        return d_field, d_py, d_px, None, None, None, None
+    The pair: a band plan ``spec`` (``interp_band.band_spec``) selects the
+    row-banded pair; else ``chunk`` > 0 rows the row-chunked pair; else the
+    unbanded one.  The backward is not differentiable again (the kernels
+    have no backward of their own)."""
+    band, max_dy = ([], 0.0) if spec is None else (list(spec[:4]), float(spec[4]))
+    return interp_op(field, pix_y, pix_x, mode, plain, band, max_dy, chunk)

@@ -11,10 +11,12 @@ over every row and column of the field, ``Wy[p,r] = K(py[p] − r)`` and
 
 The dense rows only span the field, so a tap outside it contributes nothing,
 and a non-finite position has no taps: the semantics of ``ops/interp.py``'s
-plain version and of the kernels.  ``InterpDense`` is its
-``torch.autograd.Function``: the backward regenerates the dense rows and
-their derivatives and runs the three contractions of the JAX package's
-custom VJP (``_dense_vjp_bwd``).
+plain version and of the kernels.  ``interp_dense`` runs it through the
+custom op ``paradis::interp_dense``, whose backward op
+(``paradis::interp_dense_bwd``) regenerates the dense rows and their
+derivatives and runs the three contractions of the JAX package's custom VJP
+(``_dense_vjp_bwd``); both ops have fake implementations, so that a
+selective-checkpoint policy can name the forward.
 
 This is plain PyTorch (``torch.matmul``) on every device: in the JAX package
 it is XLA, not a Pallas kernel.  Compute dtype: the JAX package contracts
@@ -128,30 +130,60 @@ def _dense_vjp_bwd(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor
             _from_channel_major(d_px, pix_x.shape).to(pix_x.dtype))
 
 
-def interp_dense(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
-                 mode: str = "bicubic") -> torch.Tensor:
-    """Sample ``field`` [B, R, C, V] at ``(pix_y, pix_x)`` [B, H, W, V] by the
-    dense contraction (no autograd pairing; see ``InterpDense``)."""
+@torch.library.custom_op("paradis::interp_dense", mutates_args=())
+def interp_dense_op(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                    mode: str) -> torch.Tensor:
+    """The forward op: field [B, R, C, V], positions [B, H, W, V] → [B, H, W, V]
+    in the field's dtype."""
     check_mode(mode)
     return _dense_impl(field, pix_y, pix_x, mode)
 
 
-class InterpDense(torch.autograd.Function):
-    """The dense interpolation with the JAX package's custom VJP:
-    ``InterpDense.apply(field, pix_y, pix_x, mode)``.  The backward
+@torch.library.custom_op("paradis::interp_dense_bwd", mutates_args=())
+def interp_dense_bwd_op(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                        g: torch.Tensor, mode: str
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward op: ``(d_field, d_py, d_px)`` for the cotangent ``g``."""
+    return _dense_vjp_bwd(field, pix_y, pix_x, g, mode)
+
+
+# the fakes lay their outputs out as the ops do: channel-major results
+# viewed channels-last
+@interp_dense_op.register_fake
+def _dense_fake(field, pix_y, pix_x, mode):
+    B, H, W, V = pix_y.shape
+    return _from_channel_major(field.new_empty((B, V, H * W)), pix_y.shape)
+
+
+@interp_dense_bwd_op.register_fake
+def _dense_bwd_fake(field, pix_y, pix_x, g, mode):
+    B, R, C, V = field.shape
+    _, H, W, _ = pix_y.shape
+    return (field.new_empty((B, V, R, C)).permute(0, 2, 3, 1),
+            _from_channel_major(pix_y.new_empty((B, V, H * W)), pix_y.shape),
+            _from_channel_major(pix_x.new_empty((B, V, H * W)), pix_x.shape))
+
+
+def _dense_setup(ctx, inputs, output):
+    field, pix_y, pix_x, mode = inputs
+    ctx.save_for_backward(field, pix_y, pix_x)
+    ctx.mode = mode
+
+
+def _dense_backward(ctx, g):
+    d_field, d_py, d_px = interp_dense_bwd_op(*ctx.saved_tensors, g, ctx.mode)
+    return d_field, d_py, d_px, None
+
+
+interp_dense_op.register_autograd(_dense_backward, setup_context=_dense_setup)
+
+
+def interp_dense(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                 mode: str = "bicubic") -> torch.Tensor:
+    """Sample ``field`` [B, R, C, V] at ``(pix_y, pix_x)`` [B, H, W, V] by the
+    dense contraction, through the op ``paradis::interp_dense`` with the JAX
+    package's custom VJP (``paradis::interp_dense_bwd``).  The backward
     regenerates the dense rows from the positions rather than keeping them
-    (they are O(P·V·(R+C)) a call).  It is not differentiable again."""
-
-    @staticmethod
-    def forward(ctx, field, pix_y, pix_x, mode: str):
-        check_mode(mode)
-        ctx.mode = mode
-        ctx.save_for_backward(field, pix_y, pix_x)
-        return _dense_impl(field, pix_y, pix_x, mode)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        field, pix_y, pix_x = ctx.saved_tensors
-        d_field, d_py, d_px = _dense_vjp_bwd(field, pix_y, pix_x, g, ctx.mode)
-        return d_field, d_py, d_px, None
+    (they are O(P·V·(R+C)) a call); it is not differentiable again."""
+    check_mode(mode)
+    return interp_dense_op(field, pix_y, pix_x, mode)

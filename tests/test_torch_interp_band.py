@@ -254,7 +254,7 @@ def test_banded_pairing_on_the_cpu_counts_no_launch():
                       interp_cuda.band_launches, interp_cuda.band_bwd_launches)
     before = counts()
     f = field.clone().requires_grad_()
-    out = interp_cuda.Interp.apply(f, py, px, "bicubic", False, spec)
+    out = interp_cuda.interp(f, py, px, "bicubic", False, spec)
     out.backward(g)
     assert counts() == before
     with pytest.raises(ValueError, match="CUDA"):

@@ -3,7 +3,8 @@
 ``jax.vjp`` of ``paradis_tpu.ops.interp_pallas.grid_sample_interp_pallas``
 runs the Pallas backward kernel in interpret mode on the CPU, as
 tests/test_interp_pallas.py runs it.  The port's side is ``interp_bwd_plain``
-and the autograd pairing ``interp_cuda.Interp`` (through ``interpolate``),
+and the autograd pairing of the custom ops ``paradis::interp`` and
+``paradis::interp_bwd`` (``interp_cuda.interp``, through ``interpolate``),
 which on CPU tensors runs the plain forward and the plain backward.  The
 CUDA backward kernel is held against ``interp_bwd_plain`` on the card by
 chip_smoke.py and tests/test_torch_kernels_gpu.py.
@@ -54,7 +55,7 @@ def _pallas_vjp(field, py, px, g, mode, dtype):
 
 
 def _port_both(field, py, px, g, mode, dtype):
-    """(interp_bwd_plain's gradients, autograd's gradients through Interp)."""
+    """(interp_bwd_plain's gradients, autograd's gradients through the custom ops)."""
     tdt = getattr(torch, dtype)
     f, y, x = torch.from_numpy(field).to(tdt), torch.from_numpy(py), torch.from_numpy(px)
     gt = torch.from_numpy(g).to(tdt)
@@ -114,7 +115,7 @@ def test_function_on_the_cpu_counts_no_kernel_launch():
     field, py, px, g = (torch.from_numpy(a) for a in _inputs(1, 6, 8, 2, 2, 4, seed=0))
     before = (interp_cuda.launches, interp_cuda.bwd_launches)
     f = field.clone().requires_grad_()
-    out = interp_cuda.Interp.apply(f, py, px, "bicubic", False)
+    out = interp_cuda.interp(f, py, px, "bicubic", False)
     torch.testing.assert_close(out, interp_plain(field, py, px, "bicubic"), rtol=0, atol=0)
     out.backward(g)
     assert (interp_cuda.launches, interp_cuda.bwd_launches) == before

@@ -1,7 +1,7 @@
 """The port's dense interpolation path against the JAX package's.
 
-``paradis_torch.ops.interp_dense.InterpDense`` against
-``paradis_tpu.ops.interp.grid_sample_interp_dense`` and ``jax.vjp`` of it (its
+``paradis_torch.ops.interp_dense.interp_dense`` (the custom op
+``paradis::interp_dense``) against ``paradis_tpu.ops.interp.grid_sample_interp_dense`` and ``jax.vjp`` of it (its
 custom VJP), on the CPU, where both packages contract float32 operands;
 against the port's gather plain versions; through ``interpolate(...,
 impl="xla")``; and the toy model with ``compute.advection_impl=xla`` on both
@@ -19,7 +19,7 @@ import numpy as np  # noqa: E402
 from paradis_tpu.ops.interp import grid_sample_interp_dense  # noqa: E402
 from paradis_torch.ops.advection import interpolate  # noqa: E402
 from paradis_torch.ops.interp import interp_bwd_plain, interp_plain  # noqa: E402
-from paradis_torch.ops.interp_dense import InterpDense, interp_dense  # noqa: E402
+from paradis_torch.ops.interp_dense import interp_dense  # noqa: E402
 from torch_parity import NLAT, NLON, as_f32, build_pair  # noqa: E402
 
 # max |port − JAX| / max |JAX| over each output and gradient.  float32: the
@@ -64,7 +64,7 @@ def test_interp_dense_matches_jax_forward_and_vjp(mode, dtype):
 
     leaves = [torch.from_numpy(field).to(tdt).requires_grad_(),
               torch.from_numpy(py).requires_grad_(), torch.from_numpy(px).requires_grad_()]
-    out = InterpDense.apply(*leaves, mode)
+    out = interp_dense(*leaves, mode)
     assert out.dtype == tdt and out.shape == py.shape
     out.backward(torch.from_numpy(g).to(tdt))
     grads = [t.grad for t in leaves]
@@ -87,7 +87,7 @@ def test_interp_dense_matches_the_gather_plain_versions(mode):
     ref = interp_plain(field, py, px, mode)
     assert _rel(out, ref.numpy()) <= TOL["float32"]
     leaves = [t.clone().requires_grad_() for t in (field, py, px)]
-    InterpDense.apply(*leaves, mode).backward(g)
+    interp_dense(*leaves, mode).backward(g)
     for name, a, r in zip(("d_field", "d_py", "d_px"), leaves,
                           interp_bwd_plain(field, py, px, g, mode)):
         assert _rel(a.grad, r.numpy()) <= TOL["float32"], name
@@ -146,7 +146,7 @@ def test_toy_model_with_the_dense_path_matches_jax(mode, dtype, atol):
 
 
 def test_toy_model_gradients_through_the_dense_path_match_the_plain_path():
-    """Parameter gradients of the fp32 toy model through ``InterpDense``'s
+    """Parameter gradients of the fp32 toy model through ``interp_dense``'s
     backward against those through the gather plain backward: the same
     function and derivative convention, in other float orders (measured
     1.9e-7 of the largest gradient)."""

@@ -89,7 +89,7 @@ def test_backward_kernel_matches_plain_on_card(mode, dtype, integer):
 
     leaves = [t.clone().requires_grad_() for t in (f, y, x)]
     n_fwd, n_bwd = interp_cuda.launches, interp_cuda.bwd_launches
-    res = interp_cuda.Interp.apply(*leaves, mode, False)
+    res = interp_cuda.interp(*leaves, mode, False)
     grads = torch.autograd.grad(res, leaves, gt)
     torch.cuda.synchronize()
     assert (interp_cuda.launches, interp_cuda.bwd_launches) == (n_fwd + 1, n_bwd + 1)
@@ -167,7 +167,7 @@ def test_band_kernels_match_plain_and_unbanded_on_card(mode, dtype):
     counts = lambda: (interp_cuda.launches, interp_cuda.bwd_launches,  # noqa: E731
                       interp_cuda.band_launches, interp_cuda.band_bwd_launches)
     n0 = counts()
-    res = interp_cuda.Interp.apply(*leaves, mode, False, spec)
+    res = interp_cuda.interp(*leaves, mode, False, spec)
     auto = torch.autograd.grad(res, leaves, g)
     torch.cuda.synchronize()
     assert counts() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1)
@@ -366,7 +366,7 @@ def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
                       interp_cuda.band_launches, interp_cuda.band_bwd_launches,
                       interp_cuda.chunk_launches, interp_cuda.chunk_bwd_launches)
     n0 = counts()
-    res = interp_cuda.Interp.apply(*leaves, mode, False, None, rw)
+    res = interp_cuda.interp(*leaves, mode, False, None, rw)
     auto = torch.autograd.grad(res, leaves, g)
     torch.cuda.synchronize()
     assert counts() == (*n0[:4], n0[4] + 1, n0[5] + 1)
@@ -577,25 +577,38 @@ def test_band_kernels_refuse_a_row_that_does_not_fit():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("positions", ["wild", "interior"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
 @pytest.mark.parametrize("shape", [(1, 9, 15, 77), (1, 32, 64, 768)], ids=["tail", "bench"])
 @pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
-def test_gen_kernels_match_plain_on_card(mode, shape):
-    """The weight-generation kernels against their plain versions on
-    positions over and beyond the padded grid, with a NaN and an inf
-    (within chip_smoke.py's ``GEN_TOL``, 5e-6: the same ≤ 4 terms per axis,
-    the cubic polynomials rounded with FMA on the card in intermediates up to
-    6)."""
+def test_gen_kernels_match_plain_on_card(mode, shape, offset, positions):
+    """The weight-generation kernels against their plain versions (within
+    chip_smoke.py's ``GEN_TOL``, 5e-6: the same ≤ 4 terms per axis, the
+    cubic polynomials rounded otherwise in intermediates up to 6).
+    ``wild`` positions lie over and beyond the padded grid, with a NaN and
+    an inf (the kernels' per-tap masks); ``interior`` ones inside, as the
+    microbenchmark draws them (no tap outside: the unmasked path).  The
+    tail's 10,395 elements are no multiple of 4 (the scalar tail after the
+    16-byte groups); ``misaligned`` positions start one element into their
+    buffer, so no pointer is 16-byte aligned (the scalar kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from paradis_torch.ops import interp_gen
 
     B, H, W, V = shape
     R, C = H + 4, W + 4
+    n = B * H * W * V
     rng = np.random.default_rng(21)
-    py = rng.uniform(-3.0, R + 2.0, size=shape).astype(np.float32)
-    px = rng.uniform(-3.0, C + 2.0, size=shape).astype(np.float32)
-    py.reshape(-1)[0], px.reshape(-1)[1] = np.nan, np.inf
-    y, x = torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda()
+    if positions == "wild":
+        py = rng.uniform(-3.0, R + 2.0, size=n + offset).astype(np.float32)
+        px = rng.uniform(-3.0, C + 2.0, size=n + offset).astype(np.float32)
+        py[offset], px[offset + 1] = np.nan, np.inf
+    else:
+        py = rng.uniform(2.0, H + 1.0, size=n + offset).astype(np.float32)
+        px = rng.uniform(2.0, W + 1.0, size=n + offset).astype(np.float32)
+    y = torch.from_numpy(py).cuda()[offset:].view(shape)
+    x = torch.from_numpy(px).cuda()[offset:].view(shape)
+    assert (y.data_ptr() % 16 != 0) == bool(offset)
     for kernel, plain, counter in ((interp_gen.gen_cuda, interp_gen.gen_plain, "gen_launches"),
                                    (interp_gen.bwd_gen_cuda, interp_gen.bwd_gen_plain,
                                     "bwd_gen_launches")):
@@ -696,3 +709,101 @@ def test_bwd_mm_kernel_matches_plain_on_card(shape, field_dtype, cdt):
         err = float((o - r).abs().max()) / float(r.abs().max())
         assert err <= MM_TOL, (name, err)
     assert float((outs[1] - outs[2]).abs().max()) <= MM_TOL * float(outs[1].abs().max())
+
+
+def _counts():
+    return (interp_cuda.launches, interp_cuda.bwd_launches, interp_cuda.band_launches,
+            interp_cuda.band_bwd_launches, interp_cuda.chunk_launches,
+            interp_cuda.chunk_bwd_launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pair", ["unbanded", "banded", "chunked"])
+def test_custom_ops_launch_the_kernels_on_card(pair, dtype):
+    """The ops ``paradis::interp`` / ``paradis::interp_bwd`` launch their
+    pair's kernels once each, and only them, and give the wrappers' bits;
+    the dense op ``paradis::interp_dense`` launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.ops.interp_band import band_spec
+    from paradis_torch.ops.interp_dense import interp_dense
+
+    H, W, V, pad, bound = 32, 15, 77, 2, 1.5
+    field, py, px = _inputs(1, H + 2 * pad, W + 2 * pad, V, H, W, seed=31)
+    arr = np.arange(H, dtype=np.float32).reshape(1, H, 1, 1) + pad
+    py = np.clip(py, arr - bound, arr + bound)
+    f = torch.from_numpy(field).cuda().to(getattr(torch, dtype))
+    y, x = torch.from_numpy(py).cuda(), torch.from_numpy(px).cuda()
+    g = torch.randn(y.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(1)
+                    ).to(f.dtype)
+    spec = band_spec(H, W, H + 2 * pad, "bicubic", bound) if pair == "banded" else None
+    chunk = 8 if pair == "chunked" else 0
+    slot = {"unbanded": 0, "banded": 2, "chunked": 4}[pair]
+    if pair == "banded":
+        fwd = interp_cuda.interp_band_fwd_cuda(f, y, x, spec, "bicubic")
+        bwd = interp_cuda.interp_band_bwd_cuda(f, y, x, g, spec, "bicubic")
+    elif pair == "chunked":
+        fwd = interp_cuda.interp_chunk_fwd_cuda(f, y, x, chunk, "bicubic")
+        bwd = interp_cuda.interp_chunk_bwd_cuda(f, y, x, g, chunk, "bicubic")
+    else:
+        fwd = interp_cuda.interp_fwd_cuda(f, y, x, "bicubic")
+        bwd = interp_cuda.interp_bwd_cuda(f, y, x, g, "bicubic")
+    leaves = [t.clone().requires_grad_() for t in (f, y, x)]
+    n0 = _counts()
+    out = interp_cuda.interp(*leaves, "bicubic", False, spec, chunk)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    expected = list(n0)
+    expected[slot] += 1
+    expected[slot + 1] += 1
+    assert list(_counts()) == expected
+    assert torch.equal(out, fwd)
+    # d_py and d_px: the same bits; d_field sums with shared-memory atomics in
+    # a run-dependent order (BWD_TOL of chip_smoke.py)
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    ok, err = _within(grads[0], bwd[0], 2e-5, rel)
+    assert ok, err
+    assert torch.equal(grads[1], bwd[1]) and torch.equal(grads[2], bwd[2])
+    n1 = _counts()
+    dense = interp_dense(*leaves, "bicubic")
+    torch.autograd.grad(dense, leaves, g)
+    torch.cuda.synchronize()
+    assert _counts() == n1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["none", "advect", "advect_pos"])
+def test_toy_train_step_under_each_remat_policy_on_card(policy):
+    """A toy model (2 layers, width 32) with the band on and gradient
+    checkpointing: one train step launches the banded backward once a layer
+    and the banded forward twice a layer under ``none`` (the replay), once
+    under ``advect`` and ``advect_pos``; the first step's gradients of the
+    policies agree with ``none``'s to 1e-6 of the largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.config import load_config
+    from paradis_torch.model import Paradis
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+
+    tiny = ["model.latent_size=32", "model.velocity_vectors=8", "model.num_layers=2",
+            "model.physblock.velocity_net.hidden_dim=16", "model.physblock.reaction.hidden_dim=16",
+            "model.physblock.output_proj.hidden_dim=16", "model.bias_channels=2",
+            "model.bias_rank=4", "compute.use_amp=false", "compute.interp_band_rad=0.15",
+            "compute.gradient_checkpointing=true"]
+    lat, lon = equiangular_lat_lon(32, 64, include_poles=False)
+    x = torch.randn(1, 32, 64, 20, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    grads = {}
+    for name in dict.fromkeys(["none", policy]):
+        cfg = load_config(overrides=tiny + [f"compute.remat_policy={name}"])
+        model = Paradis.from_config(cfg, input_dim=20, output_dim=7, lat_deg=lat, lon_deg=lon,
+                                    device="cuda")
+        L = len(model.layers)
+        n0 = _counts()
+        model(x).square().mean().backward()
+        torch.cuda.synchronize()
+        n1 = _counts()
+        assert [b - a for a, b in zip(n0, n1)] == [0, 0, L if name != "none" else 2 * L, L, 0, 0]
+        grads[name] = torch.cat([p.grad.flatten() for p in model.parameters()])
+    scale = grads["none"].abs().max()
+    assert (grads[policy] - grads["none"]).abs().max() <= 1e-6 * scale

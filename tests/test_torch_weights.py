@@ -112,13 +112,21 @@ def test_same_seed_same_weights():
     ("compute.advection_impl=pallas", "advection_impl"),
     ("compute.advection_impl=gather", "advection_impl"),
     ("compute.advection_impl=plain", "advection_impl"),
-    ("compute.gradient_checkpointing=true compute.remat_policy=advect", "remat_policy"),
-    ("compute.gradient_checkpointing=true compute.remat_policy=advect_pos", "remat_policy"),
     ("compute.gradient_checkpointing=true compute.remat_policy=offload", "remat_policy"),
 ])
 def test_from_config_raises_on_settings_it_cannot_honour(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         _small(*override.split())
+
+
+@pytest.mark.parametrize("policy", ["none", "advect", "advect_pos"])
+def test_from_config_builds_each_remat_policy(policy):
+    """Each ``compute.remat_policy`` of the JAX package builds, and a
+    checkpointed forward and backward runs under it on the CPU."""
+    model = _small("compute.gradient_checkpointing=true", f"compute.remat_policy={policy}")
+    assert model.gradient_checkpointing and model.remat_policy == policy
+    model(torch.ones(1, 8, 16, 20)).square().mean().backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_entry_points_raise_without_a_card_and_without_a_device(monkeypatch):
