@@ -77,7 +77,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``compute.remat_policy=advect`` and ``advect_pos`` (the replay keeps the
    interpolation's output, and its departure positions), each launching the
    banded forward only 8 times a step, with its device ms, busy share,
-   launches and peak memory beside the ``none`` run's.
+   launches and peak memory beside the ``none`` run's.  ``[train-amse]``: the
+   same bf16 1.40625° steps with ``training.loss_function.type=amse`` (the
+   spectral loss through ``ops/sht.py``: an rFFT and a float32 Legendre
+   product, no kernel of its own), beside the reversed Huber run.  ``[sht]``:
+   the analysis of a seeded [1, 128, 256, 97] field against a float64 CPU
+   analysis, and the analysis and the AMSE forward + backward timed beside
+   the Legendre product's bound.  ``[checkpoint]``: two uninterrupted
+   4-step bf16 1.40625° runs from one seed (their spread is the noise floor
+   of the banded backward's float atomics), a third saved after 2 steps
+   through ``CheckpointManager``, restored into a model and optimizer built
+   afresh from another seed (bitwise what was saved) and run 2 more steps
+   (within 4× the spread), the save and restore seconds and bytes, and a
+   weights-only ``load_params`` of that checkpoint into a 5.625° model (U/V
+   re-interpolated) that forecasts one finite step through #1.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -252,6 +265,18 @@ MM_TOL = 2e-5
 # channel and position blocks (vb, pb) that mm's bitwise check adds to the
 # variants': the variants' own, and one that divides neither V nor P
 MM_BLOCKS = ((8, 1024), (32, 256), (128, 128), (5, 300))
+# the AMSE train cell: the 1.40625° bf16 train configuration with the
+# spectral loss in place of the reversed Huber
+AMSE_OVERRIDES = HR_TRAIN_OVERRIDES + ["training.loss_function.type=amse"]
+SHT_SHAPE = (1, 128, 256, 97)  # one 1.40625° output of the flagship
+# the card's SHT analysis vs a float64 CPU analysis, max |diff| / max
+# |coefficient|: the float32 rounding of the FFT and of the Legendre
+# product's sums (≤ 1.8e-7 against the JAX package on the CPU)
+SHT_TOL = 1e-5
+CKPT_STEPS = 4                 # uninterrupted train steps; the save after half
+# where the two uninterrupted runs agree bitwise, the limit on the resumed
+# run's distance from them, as a share of the largest loss / parameter
+CKPT_FLOOR = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1309,6 +1334,21 @@ def recording_bwd(store: list, n: int):
         ic.interp_bwd_cuda = kernel
 
 
+def train_batch(d: dict, S: int, nlat: int, nlon: int) -> dict:
+    """The one seeded random batch the train steps take, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    batch = {
+        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
+        "target": rng.normal(size=(1, S, nlat, nlon, d["n_out"])),
+        "forcings": rng.normal(size=(1, S, nlat, nlon, d["n_forcings"] * d["n_time"])),
+        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
+
+
 def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol,
                chunk_rw: int, capture: list | None) -> dict:
     import numpy as np
@@ -1333,19 +1373,12 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     n_layers = len(model.layers)
     banded = band_on(model, nlat, nlon)
     loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
-                                       device="cuda")
+                                       nlon=nlon, device="cuda")
     optimizer = build_optimizer(cfg, model)
     lr_at, _ = build_schedule(cfg, int(cfg.training.max_steps))
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, loss_fn, cfg, optimizer)
-    rng = np.random.default_rng(0)
-    batch = {
-        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
-        "target": rng.normal(size=(1, S, nlat, nlon, d["n_out"])),
-        "forcings": rng.normal(size=(1, S, nlat, nlon, d["n_forcings"] * d["n_time"])),
-        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
-    }
-    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
+    batch = train_batch(d, S, nlat, nlon)
 
     # the first step's parameter gradients, through the plain interpolation
     # and through the kernels (the step's loss at S = 1, unscaled)
@@ -1407,6 +1440,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": overrides,
         "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
         "gradient_checkpointing": model.gradient_checkpointing, "remat_policy": policy,
+        "loss": loss_fn.kind,
         "model_dtype": str(model.dtype),
         "optimizer": optimizer.name, "ns_dtype": str(optimizer.ns_dtype), "S": S,
         "layers": n_layers, "params": sum(p.numel() for p in model.parameters()),
@@ -1429,6 +1463,267 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
                  and grad_err <= grad_tol[dtype_name])
     del model, optimizer, state, train_step
     torch.cuda.empty_cache()
+    return res
+
+
+def check_sht(card: str) -> dict:
+    """The SHT analysis of a seeded ``SHT_SHAPE`` field on the card against a
+    float64 CPU analysis of the same field (numpy's FFT and the float64
+    Legendre table), and the analysis and the AMSE forward + backward timed
+    beside the Legendre product's bound."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.ops import sht
+    from paradis_torch.train.amse import AMSELoss
+
+    B, H, W, C = SHT_SHAPE
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=SHT_SHAPE).astype(np.float32)
+    y = (0.7 * x + rng.normal(scale=0.8, size=SHT_SHAPE)).astype(np.float32)
+    transform = sht.RealSHT(H, W)
+    L, M = transform.lmax, transform.mmax
+    xd = torch.tensor(x, device="cuda")
+    coef = transform.analysis(xd)
+    torch.cuda.synchronize()
+
+    cos_t, w = sht._colat_quadrature(H, False)
+    table = sht._legendre_table(L, M, cos_t) * w[None, None, :]
+    fm = np.fft.rfft(x.astype(np.float64), axis=-2)[..., :M, :] * (2.0 * np.pi / W)
+    ref = np.einsum("lmh,...hmc->...lmc", table, fm)
+    err = float(np.abs(coef.cpu().numpy().astype(np.complex128) - ref).max()
+                / np.abs(ref).max())
+
+    yd = torch.tensor(y, device="cuda")
+    weights = torch.tensor(rng.uniform(0.2, 2.0, size=C), dtype=torch.float32, device="cuda")
+    loss_fn = AMSELoss(H, W)
+    pred = xd.clone().requires_grad_()
+
+    def amse_fwd_bwd():
+        torch.autograd.grad(loss_fn(pred, yd, weights), pred)
+
+    loss = float(loss_fn(pred, yd, weights).detach())
+    ms = time_ms(lambda: transform.analysis(xd), 50)
+    amse_ms = time_ms(amse_fwd_bwd, 20)
+    # the Legendre product: table [M, L, H] @ [M, H, 2·B·C] (real and imaginary)
+    K = 2 * B * C
+    nbytes = 4 * (M * L * H + M * H * K + M * L * K)
+    flops = 2 * M * L * H * K
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3
+    res = {"card": card, "shape": list(SHT_SHAPE), "lmax": L, "mmax": M,
+           "coef_shape": list(coef.shape), "coef_dtype": str(coef.dtype),
+           "max_rel_err_vs_float64": err, "limit": SHT_TOL,
+           "analysis_ms": ms, "legendre_bytes": nbytes, "legendre_flops": flops,
+           "legendre_bound_ms": bound_ms,
+           "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S > flops / PEAK_FP32_FLOPS
+           else "operations",
+           # two analyses forward and the prediction's one backward
+           "amse_fwd_bwd_ms": amse_ms, "amse_legendre_bound_ms": 3 * bound_ms,
+           "amse_loss": loss}
+    res["ok"] = (err <= SHT_TOL and res["coef_shape"] == [B, L, M, C]
+                 and coef.dtype == torch.complex64 and np.isfinite(loss) and loss > 0)
+    return res
+
+
+def _flat_state(obj, prefix: str) -> dict:
+    """Every tensor and number of a nested state dict, by path (tensors copied)."""
+    if isinstance(obj, dict):
+        return {k: v for key, val in obj.items()
+                for k, v in _flat_state(val, f"{prefix}/{key}").items()}
+    if isinstance(obj, (list, tuple)):
+        return {k: v for i, val in enumerate(obj)
+                for k, v in _flat_state(val, f"{prefix}/{i}").items()}
+    return {prefix: obj.clone() if hasattr(obj, "clone") else obj}
+
+
+def run_checkpoint(card: str) -> dict:
+    """Save, restore and resume at 1.40625° bf16 with the default loss, then
+    a weights-only transfer of that checkpoint onto the 5.625° grid.
+
+    Two uninterrupted ``CKPT_STEPS``-step runs from one seed give the noise
+    floor (#6 sums d_field with shared-memory float atomics: not bitwise
+    reproducible).  A third run stops after half the steps and saves through
+    ``CheckpointManager``; a model and optimizer built afresh from another
+    seed restore it through the root's ``last.json`` (bitwise what was saved)
+    and take the other half, which must land within 4× the uninterrupted
+    runs' spread of them (``CKPT_FLOOR`` of the largest value where that
+    spread is 0).  ``load_params`` of the step checkpoint into a 5.625° model
+    re-interpolates the GlobalBias U/V factors, and one forecast step through
+    #1 must be finite."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data import dyn_output_features
+    from paradis_torch.forecast import make_forecast_rollout
+    from paradis_torch.model import Paradis
+    from paradis_torch.ops.resize import linear_interp_matrix
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+    from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
+                                     create_train_state, make_train_step, set_learning_rate)
+    from paradis_torch.train.checkpoint import CheckpointManager, load_params
+
+    cfg = load_config(overrides=HR_TRAIN_OVERRIDES)
+    d = flagship_dims(cfg)
+    S = int(cfg.model.forecast_steps)
+    seed = int(cfg.init.seed)
+    lat, lon = equiangular_lat_lon(*HR, include_poles=False)
+    loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features), nlon=HR[1],
+                                       device="cuda")
+    lr_at, _ = build_schedule(cfg, int(cfg.training.max_steps))
+    batch = train_batch(d, S, *HR)
+    accum = int(cfg.training.accumulate_grad_batches)
+
+    def fresh(model_seed):
+        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
+                                    lat_deg=lat, lon_deg=lon, seed=model_seed, device="cuda")
+        optimizer = build_optimizer(cfg, model)
+        return create_train_state(model, optimizer), make_train_step(model, loss_fn, cfg,
+                                                                     optimizer)
+
+    def train(state, step_fn, n):
+        losses = []
+        for _ in range(n):
+            set_learning_rate(state.optimizer, lr_at(state.step))
+            losses.append(float(step_fn(state, batch, d["n_common"])["loss"]))
+        return losses
+
+    def flat_params(model):
+        return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+    runs = []
+    for _ in range(2):
+        state, step_fn = fresh(seed)
+        runs.append((train(state, step_fn, CKPT_STEPS), flat_params(state.model).clone()))
+        del state, step_fn
+    (loss_a, final_a), (loss_b, final_b) = runs
+    loss_spread = max(abs(a - b) for a, b in zip(loss_a, loss_b))
+    param_spread = float((final_a - final_b).abs().max())
+    del final_b
+
+    half = CKPT_STEPS // 2
+    tmp = tempfile.TemporaryDirectory(prefix="paradis-ckpt-")
+    root = Path(tmp.name)
+    try:
+        state, step_fn = fresh(seed)
+        first = train(state, step_fn, half)
+        mgr = CheckpointManager(root, step_every=half, accumulate_grad_batches=accum)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved_ok = mgr.maybe_save_step(state.step, state)
+        save_s = time.perf_counter() - t0
+        saved = _flat_state({"params": dict(state.model.named_parameters()),
+                             "optimizer": state.optimizer.state_dict(),
+                             "step": state.step, "micro_step": state.micro_step}, "")
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del state, step_fn
+        torch.cuda.empty_cache()
+        files = [f for f in root.rglob("*") if f.is_file()]
+        ckpt_bytes = sum(f.stat().st_size for f in files)
+        pointer = CheckpointManager(root).latest_path()
+
+        state, step_fn = fresh(seed + 1)
+        differed = not torch.equal(flat_params(state.model), torch.cat(
+            [saved[f"/params/{n}"].flatten() for n, _ in state.model.named_parameters()]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(root).restore(state, root)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = _flat_state({"params": dict(state.model.named_parameters()),
+                                "optimizer": state.optimizer.state_dict(),
+                                "step": state.step, "micro_step": state.micro_step}, "")
+        mismatched = sorted(set(saved) ^ set(restored)) + sorted(
+            k for k in set(saved) & set(restored)
+            if not (saved[k].dtype == restored[k].dtype and saved[k].device == restored[k].device
+                    and torch.equal(saved[k], restored[k])
+                    if isinstance(saved[k], torch.Tensor) else saved[k] == restored[k]))
+        del saved, restored
+        second = train(state, step_fn, CKPT_STEPS - half)
+        final_r = flat_params(state.model)
+        del state, step_fn
+        resumed_loss_err = max(abs(a - b) for a, b in zip(second, loss_a[half:]))
+        resumed_param_err = float((final_r - final_a).abs().max())
+        param_scale = float(final_a.abs().max())
+        del final_r, final_a
+        torch.cuda.empty_cache()
+
+        # weights-only transfer onto the 5.625° grid, from the state-only
+        # step checkpoint: U/V re-interpolated 256 → 64 and 128 → 32
+        lr_cfg = load_config()
+        lr_cfg.forecast.output_frequency = 1
+        lr_d = flagship_dims(lr_cfg)
+        lat5, lon5 = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+        small = Paradis.from_config(lr_cfg, input_dim=lr_d["input_dim"],
+                                    output_dim=lr_d["n_out"], lat_deg=lat5, lon_deg=lon5,
+                                    seed=seed + 2, device="cuda")
+        load_params(root, small)
+        src = torch.load(root / "steps" / f"{half:08d}" / "state.pt", map_location="cpu",
+                         weights_only=True)["params"]
+        uv_err, uv_shapes, other_equal = 0.0, set(), True
+        for name, p in small.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("U", "V"):
+                mat = torch.tensor(linear_interp_matrix(src[name].shape[-1], p.shape[-1]))
+                uv_err = max(uv_err, float((p.detach().cpu() - src[name] @ mat.T).abs().max()))
+                uv_shapes.add((tuple(src[name].shape), tuple(p.shape)))
+            else:
+                other_equal = other_equal and torch.equal(p.detach().cpu(), src[name])
+        del src
+        rng = np.random.default_rng(0)
+        fc_batch = {
+            "input": rng.normal(size=(1, NLAT, NLON, lr_d["n_common"] * lr_d["n_time"])),
+            "forcings": rng.normal(size=(1, 1, NLAT, NLON, lr_d["n_forcings"] * lr_d["n_time"])),
+            "constants": rng.normal(size=(1, NLAT, NLON, lr_d["n_const"])),
+        }
+        fc_batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                    for k, v in fc_batch.items()}
+        reset_counts()
+        out = make_forecast_rollout(small, lr_cfg)(fc_batch, lr_d["n_common"])
+        torch.cuda.synchronize()
+        fc_launches = launch_counts()
+        n_layers = len(small.layers)
+        fc_expected = expected_launches(n_layers, 0, band_on(small, NLAT, NLON), 0)
+        fc_finite = bool(torch.isfinite(out).all())
+        fc_shape = list(out.shape)
+        del small, out
+    finally:
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    loss_scale = max(abs(v) for v in loss_a)
+    loss_limit = 4 * loss_spread if loss_spread > 0 else CKPT_FLOOR * loss_scale
+    param_limit = 4 * param_spread if param_spread > 0 else CKPT_FLOOR * param_scale
+    res = {
+        "card": card, "grid": list(HR), "dtype": "bfloat16", "loss": loss_fn.kind,
+        "params": n_params, "steps": CKPT_STEPS, "saved_after": half,
+        "accumulate_grad_batches": accum,
+        "uninterrupted_losses": [loss_a, loss_b], "loss_spread": loss_spread,
+        "param_spread": param_spread, "param_max_abs": param_scale,
+        "resumed_losses": first + second, "resumed_loss_err": resumed_loss_err,
+        "loss_limit": loss_limit, "resumed_param_err": resumed_param_err,
+        "param_limit": param_limit,
+        "save_s": save_s, "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+        "files": sorted(str(f.relative_to(root)) for f in files),
+        "last_json": str(pointer.relative_to(root.resolve())) if pointer else None,
+        "restored_bitwise": not mismatched, "mismatched": mismatched[:10],
+        "fresh_model_differed": differed,
+        "transfer_uv_shapes": sorted(uv_shapes), "transfer_uv_max_abs_err": uv_err,
+        "transfer_other_params_equal": other_equal,
+        "transfer_forecast_shape": fc_shape, "transfer_forecast_finite": fc_finite,
+        "transfer_forecast_launches": fc_launches, "transfer_expected_launches": fc_expected,
+    }
+    res["ok"] = (saved_ok and not mismatched and differed
+                 and res["last_json"] == f"steps/{half:08d}"
+                 and all(np.isfinite(loss_a + loss_b + first + second))
+                 and resumed_loss_err <= loss_limit and resumed_param_err <= param_limit
+                 and len(uv_shapes) > 0
+                 and all(a[:-1] == b[:-1] and (a[-1], b[-1]) in ((HR[0], NLAT), (HR[1], NLON))
+                         for a, b in uv_shapes)
+                 and uv_err <= 1e-6 and other_equal
+                 and fc_finite and fc_shape == [1, 1, NLAT, NLON, lr_d["n_out"]]
+                 and fc_launches == fc_expected and fc_launches[0] == n_layers)
     return res
 
 
@@ -1676,6 +1971,40 @@ def main() -> int:
                  "train_steps_per_s": r["train_steps_per_s"], "peak_mem_gb": r["peak_mem_gb"]}
         for policy, r in remat_trains.items()}))
 
+    # the 1.40625° bf16 train step with the AMSE spectral loss, beside the
+    # reversed Huber run above
+    amse = run_train("bfloat16", card, HR, AMSE_OVERRIDES, HR_TRAIN_STEPS, HR_GRAD_TOL)
+    log("[train-amse] " + json.dumps(amse))
+    if not amse["ok"] or amse["loss"] != "amse":
+        raise SystemExit(f"train steps with the AMSE loss failed their checks: {amse}")
+    log("[train-amse] " + json.dumps({
+        r["loss"]: {"train_steps_per_s": r["train_steps_per_s"],
+                    "device_ms_per_step": r["profile"]["device_ms_per_step"],
+                    "busy_share": r["profile"]["busy_share"],
+                    "device_launches_per_step": r["profile"].get("device_launches_per_step"),
+                    "peak_mem_gb": r["peak_mem_gb"], "losses": r["losses"]}
+        for r in (hr_trains["bfloat16"], amse)}))
+
+    # the spherical harmonic transform against a float64 analysis, and timed
+    sht_check = check_sht(card)
+    log("[sht] " + json.dumps(sht_check))
+    if not sht_check["ok"]:
+        raise SystemExit(f"the SHT disagrees with its float64 analysis: {sht_check}")
+    log(f"[sht] {SHT_SHAPE}: analysis {sht_check['analysis_ms']:.4f} ms (Legendre bound "
+        f"{sht_check['legendre_bound_ms']:.4f} ms), AMSE forward + backward "
+        f"{sht_check['amse_fwd_bwd_ms']:.4f} ms, max rel err "
+        f"{sht_check['max_rel_err_vs_float64']:.3g} on {card}")
+
+    # save, restore and resume at 1.40625°, and a weights-only transfer to 5.625°
+    ckpt = run_checkpoint(card)
+    log("[checkpoint] " + json.dumps(ckpt))
+    if not ckpt["ok"]:
+        raise SystemExit(f"checkpoint save, restore, resume or transfer failed: {ckpt}")
+    log(f"[checkpoint] {ckpt['checkpoint_bytes']} bytes, save {ckpt['save_s']:.2f} s, restore "
+        f"{ckpt['restore_s']:.2f} s; resumed within {ckpt['resumed_loss_err']:.3g} (loss) and "
+        f"{ckpt['resumed_param_err']:.3g} (parameters) of the uninterrupted run, whose "
+        f"repeat spread {ckpt['loss_spread']:.3g} / {ckpt['param_spread']:.3g} on {card}")
+
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
                         for dtype_name in ("bfloat16", "float32")]
@@ -1725,6 +2054,7 @@ def main() -> int:
     device_ms.update({f"train bfloat16 {HR[0]}x{HR[1]} remat {p}":
                       r["profile"]["device_ms_per_step"]
                       for p, r in remat_trains.items() if p != "none"})
+    device_ms[f"train bfloat16 {HR[0]}x{HR[1]} amse"] = amse["profile"]["device_ms_per_step"]
     log("[device-ms] " + json.dumps({"device_ms_per_step": device_ms,
                                      "earlier_device_ms_per_step": EARLIER_DEVICE_MS}))
 

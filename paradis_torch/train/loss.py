@@ -1,11 +1,13 @@
-"""Weighted forecast losses: MSE and reversed Huber.
+"""Weighted forecast losses: MSE, reversed Huber, AMSE (spectral).
 
 Port of ``paradis_tpu/train/loss.py``.  Weights per output channel are the
 configured variable weight times, on atmospheric channels, the pressure
 weight ``max(p/1000, 0.2)`` of the channel's ``_h{level}`` suffix (flipped for
 geopotential under ``flip_geopotential_weights``); latitude area weights
-(unit mean) multiply along the grid's rows.  All loss math runs in float32.
-The spectral AMSE loss is not ported yet (ROADMAP Queue 1 item 6).
+(unit mean) multiply along the grid's rows, except under ``amse``, whose
+spectral loss (``train/amse.py``) takes the feature weights alone.  The
+per-channel diagnostic stays pointwise (reversed Huber under ``amse``).  All
+loss math runs in float32.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from paradis_torch import resolve_device
 from paradis_torch.sphere.geometry import latitude_weights
+from paradis_torch.train.amse import AMSELoss
 
 _LEVEL_RE = re.compile(r"_h\d+$")
 
@@ -65,22 +69,22 @@ def reversed_huber(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0)
 class WeightedLoss:
     """Feature- and latitude-weighted pointwise loss over [B, H, W, C] fields."""
 
-    kind: str                          # "mse" | "reversed_huber"
+    kind: str                          # "mse" | "reversed_huber" | "amse"
     feature_weights: torch.Tensor      # [C] float32
     lat_weights: torch.Tensor | None = None  # [H] float32, or None
     delta: float = 1.0
+    amse: AMSELoss | None = None       # the spectral loss when kind == "amse"
 
     @classmethod
     def from_config(cls, cfg, lat_deg, output_name_order: list[str], kind: str | None = None,
-                    device=None) -> "WeightedLoss":
+                    nlon: int | None = None, device=None) -> "WeightedLoss":
         """Weights from the config for the output channels ``output_name_order``
-        on a grid with latitudes ``lat_deg``; tensors on ``device`` (the CPU
-        unless given)."""
+        on a grid with latitudes ``lat_deg`` (and ``nlon`` longitudes, which
+        the AMSE loss needs: ``2·(nlat − 1)`` when not given, as in the
+        reference); tensors on ``device`` (``cuda`` unless given; raises when
+        there is none)."""
         kind = kind or cfg.training.loss_function.type
-        if kind == "amse":
-            raise NotImplementedError("the AMSE loss (and its spherical harmonic transform) "
-                                      "is not ported yet: ROADMAP Queue 1 item 6")
-        if kind not in ("mse", "reversed_huber"):
+        if kind not in ("mse", "reversed_huber", "amse"):
             raise ValueError(f"{kind} not supported, choose between [reversed_huber, mse, amse]")
         lcfg = cfg.training.loss_function
         levels = [float(lev) for lev in cfg.features.pressure_levels]
@@ -102,12 +106,20 @@ class WeightedLoss:
                 table = pw[::-1] if flip_geo and strip_level(feat) == "geopotential" else pw
                 fw[i] = var_w[i] * table[level_pos[lev]]
 
-        lat_w = None
-        if lcfg.lat_weights:
-            lat_w = torch.tensor(latitude_weights(np.asarray(lat_deg, np.float64)),
-                                 dtype=torch.float32, device=device)
+        device = resolve_device(device)
+        lat_arr = np.asarray(lat_deg, np.float64)
+        lat_w = amse = None
+        if lcfg.lat_weights and kind != "amse":
+            lat_w = torch.tensor(latitude_weights(lat_arr), dtype=torch.float32, device=device)
+        if kind == "amse":
+            # the reference derives nlon as 2*(nlat-1), which only matches
+            # pole-inclusive grids; the true longitude count where given
+            nlat = len(lat_arr)
+            includes_poles = (abs(lat_arr.min() + 90) < 1e-6 and abs(lat_arr.max() - 90) < 1e-6)
+            amse = AMSELoss(nlat=nlat, nlon=int(nlon) if nlon else 2 * (nlat - 1),
+                            includes_poles=includes_poles)
         return cls(kind=kind, feature_weights=torch.tensor(fw, device=device),
-                   lat_weights=lat_w, delta=float(lcfg.delta_loss))
+                   lat_weights=lat_w, delta=float(lcfg.delta_loss), amse=amse)
 
     def _pointwise(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         pred, target = pred.float(), target.float()
@@ -124,6 +136,8 @@ class WeightedLoss:
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         """Scalar weighted loss over ``[B, H, W, C]`` prediction and target."""
+        if self.kind == "amse":
+            return self.amse(pred, target, weights=self.feature_weights)
         return self._weighted(self._pointwise(pred, target)).mean()
 
     def per_channel(self, pred: torch.Tensor, target: torch.Tensor,

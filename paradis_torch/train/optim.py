@@ -21,6 +21,11 @@ the config names:
 The learning rate is a plain attribute that the host sets each step
 (``set_learning_rate``), the one mechanism behind the WSD and OneCycle
 schedules and the plateau controller.
+
+``state_dict()`` / ``load_state_dict()`` carry what optax's state carries:
+AdamW's state dict, each Muon group's momentum and ν stacks keyed by its
+parameters' names (so an optimizer built afresh over a model built afresh
+restores each row into its own parameter's slot), and the host-set ``lr``.
 """
 
 from __future__ import annotations
@@ -81,7 +86,8 @@ def grad_norm(params) -> torch.Tensor:
 class _MuonGroup:
     """Parameters of one ``[out, fan_in]`` shape and their stacked state."""
 
-    def __init__(self, params: list[nn.Parameter], normuon: bool):
+    def __init__(self, names: list[str], params: list[nn.Parameter], normuon: bool):
+        self.names = names
         self.params = params
         self.out = params[0].shape[0]
         self.fan = params[0].numel() // self.out
@@ -107,21 +113,82 @@ class ParadisOptimizer:
         self.params = [p for p in model.parameters() if p.requires_grad]
         labels = muon_labels(model) if name != "adamw" else {}
         by_shape: dict[tuple, list] = {}
-        adam = []
+        adam, self.adamw_names = [], []
         for pname, p in model.named_parameters():
             if not p.requires_grad:
                 continue
             if labels.get(pname) == "muon":
-                by_shape.setdefault((p.shape[0], p.numel() // p.shape[0]), []).append(p)
+                by_shape.setdefault((p.shape[0], p.numel() // p.shape[0]), []).append((pname, p))
             else:
                 adam.append(p)
-        self.muon_groups = [_MuonGroup(ps, name == "normuon") for ps in by_shape.values()]
+                self.adamw_names.append(pname)
+        self.muon_groups = [_MuonGroup([n for n, _ in group], [p for _, p in group],
+                                       name == "normuon") for group in by_shape.values()]
         self.adamw = (torch.optim.AdamW(adam, lr=self.lr, betas=betas, eps=_EPS,
                                         weight_decay=weight_decay) if adam else None)
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> dict:
+        """The optimizer's state as plain dicts, lists, tensors and numbers
+        (references to the live tensors, as ``torch.optim`` returns them)."""
+        return {"name": self.name, "lr": self.lr,
+                "adamw": None if self.adamw is None else self.adamw.state_dict(),
+                "adamw_names": list(self.adamw_names),
+                "muon": [{"names": list(g.names), "momentum": g.momentum, "nu": g.nu}
+                         for g in self.muon_groups]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output.  Every name, group and shape is
+        checked before anything is copied: a mismatch raises ``ValueError``
+        and leaves the optimizer as it was."""
+        plan = self._check_state(state)
+        if self.adamw is not None:  # torch checks the groups before it sets any state
+            self.adamw.load_state_dict(state["adamw"])
+        with torch.no_grad():
+            for group, (momentum, nu) in zip(self.muon_groups, plan):
+                group.momentum.copy_(momentum)
+                if group.nu is not None:
+                    group.nu.copy_(nu)
+        self.lr = float(state["lr"])
+
+    def _check_state(self, state: dict) -> list:
+        """Each Muon group's saved stacks, rows in this group's order."""
+        if not isinstance(state, dict) or state.get("name") != self.name:
+            got = state.get("name") if isinstance(state, dict) else type(state).__name__
+            raise ValueError(f"optimizer state of {got!r} does not fit the {self.name!r} optimizer")
+        if list(state["adamw_names"]) != self.adamw_names:
+            raise ValueError(f"AdamW parameters differ: saved {list(state['adamw_names'])}, "
+                             f"optimizer {self.adamw_names}")
+        if self.adamw is not None:
+            adam = self.adamw.param_groups[0]["params"]
+            for i, entry in state["adamw"]["state"].items():
+                for key in ("exp_avg", "exp_avg_sq"):
+                    if tuple(entry[key].shape) != tuple(adam[i].shape):
+                        raise ValueError(f"shape mismatch at AdamW {key} of "
+                                         f"{self.adamw_names[i]}: {tuple(entry[key].shape)} "
+                                         f"vs expected {tuple(adam[i].shape)}")
+        saved = {frozenset(g["names"]): g for g in state["muon"]}
+        if set(saved) != {frozenset(g.names) for g in self.muon_groups}:
+            raise ValueError("Muon groups differ: saved "
+                             f"{sorted(sorted(k) for k in saved)}, optimizer "
+                             f"{sorted(sorted(g.names) for g in self.muon_groups)}")
+        plan = []
+        for group in self.muon_groups:
+            entry = saved[frozenset(group.names)]
+            rows = [list(entry["names"]).index(n) for n in group.names]
+            momentum, nu = entry["momentum"], entry["nu"]
+            if tuple(momentum.shape) != tuple(group.momentum.shape):
+                raise ValueError(f"shape mismatch at the Muon momentum of {group.names}: "
+                                 f"{tuple(momentum.shape)} vs expected "
+                                 f"{tuple(group.momentum.shape)}")
+            if (nu is None) != (group.nu is None) or (
+                    nu is not None and tuple(nu.shape) != tuple(group.nu.shape)):
+                raise ValueError(f"the NorMuon second moment of {group.names} does not fit")
+            plan.append((momentum[rows], None if nu is None else nu[rows]))
+        return plan
 
     @torch.no_grad()
     def step(self) -> None:

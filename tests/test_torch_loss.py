@@ -54,7 +54,7 @@ def _pair(*overrides, kind=None):
     lat, _ = equiangular_lat_lon(8, 16, include_poles=False)
     names = dyn_output_features(tcfg.features)
     return (jax_loss.WeightedLoss.from_config(jcfg, lat, names, kind=kind),
-            loss.WeightedLoss.from_config(tcfg, lat, names, kind=kind), len(names))
+            loss.WeightedLoss.from_config(tcfg, lat, names, kind=kind, device="cpu"), len(names))
 
 
 def _fields(n_out, seed=0):
@@ -127,20 +127,20 @@ def test_missing_variable_weight_raises():
         loss.build_variable_weights(cfg, names)
     lat, _ = equiangular_lat_lon(8, 16, include_poles=False)
     with pytest.raises(ValueError, match="snow_depth"):
-        loss.WeightedLoss.from_config(cfg, lat, names)
+        loss.WeightedLoss.from_config(cfg, lat, names, device="cpu")
 
 
 def test_level_outside_the_configured_levels_raises():
     cfg = load_config()
     lat, _ = equiangular_lat_lon(8, 16, include_poles=False)
     with pytest.raises(ValueError, match="level"):
-        loss.WeightedLoss.from_config(cfg, lat, ["temperature_h775", "2m_temperature"])
+        loss.WeightedLoss.from_config(cfg, lat, ["temperature_h775", "2m_temperature"],
+                                      device="cpu")
 
 
-def test_amse_is_not_ported_yet():
+def test_unknown_loss_kind_raises():
     cfg = load_config()
     lat, _ = equiangular_lat_lon(8, 16, include_poles=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        loss.WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features), kind="amse")
     with pytest.raises(ValueError, match="not supported"):
-        loss.WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features), kind="l1")
+        loss.WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features), kind="l1",
+                                      device="cpu")

@@ -115,7 +115,7 @@ def test_banded_train_step_matches_jax(remat, counted):
     lat, _ = equiangular_lat_lon(NLAT, NLON, include_poles=False)
     names = dyn_output_features(pair.cfg.features)
     jloss = JaxWeightedLoss.from_config(pair.jax_cfg, lat, names)
-    tloss = WeightedLoss.from_config(pair.cfg, lat, names)
+    tloss = WeightedLoss.from_config(pair.cfg, lat, names, device="cpu")
     jopt = jax_build_optimizer(pair.jax_cfg, pair.params)
     jstep, _ = jax_make_train_step(pair.jax_model, jloss, pair.jax_cfg, jopt, donate=False)
     jstate = jax_create_train_state(pair.params, jopt)

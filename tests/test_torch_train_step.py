@@ -6,14 +6,15 @@ kernel's derivative convention) runs ``make_train_step`` with the weighted
 reversed Huber loss and NorMuon (float32 Newton–Schulz, so the comparison is
 not swamped by bf16 iterates) over the same seeded numpy batches, in three
 configurations: the default, TBPTT with ``detach_gradient_every=1`` over two
-forecast steps, and ``accumulate_grad_batches=2`` with
-``log_additional_stats`` on and a ``gradient_clip_val`` that binds on the
-toy (the logged gradients are the raw ones, taken before the clip scales
-them).  Each configuration costs the JAX side a trace
-and compile of ~25-40 CPU-seconds, most of this file's time.
+forecast steps, ``accumulate_grad_batches=2`` with ``log_additional_stats``
+on and a ``gradient_clip_val`` that binds on the toy (the logged gradients
+are the raw ones, taken before the clip scales them), and the AMSE spectral
+loss in place of the reversed Huber.  Each configuration costs the JAX side
+a trace and compile of ~25-40 CPU-seconds, most of this file's time.
 
 Limits: per-step losses and gradient norms within rtol 1e-5 (float32 sums
-in another order; measured ≤ 1e-6).  The parameters after the last step,
+in another order; measured ≤ 1e-6), but the AMSE case's gradient norm
+(``AMSE_GRAD_NORM_RTOL`` below says why).  The parameters after the last step,
 as total updates: the Frobenius norm of the difference within 2e-4 of that
 of the update (measured ≤ 3.3e-5), and each element within 5e-3 of the
 largest update (measured ≤ 9.4e-4: a parameter near 1 carries a float32 ulp
@@ -45,6 +46,14 @@ from torch_parity import NLAT, NLON, build_pair  # noqa: E402
 
 STEPS = 4
 RTOL = 1e-5
+# The AMSE amplitude term's gradient in a coefficient p is ~2·sqrt(PSD_t)·
+# p/sqrt(|p|² + 1e-7): where a channel's power at some l is near 1e-7 (step
+# 2 of this case: channel 79, l = 0, |p| = 2.5e-4, a global mean near zero)
+# it dominates the gradient (norm 12.8 against ~2.6 at the other steps), and
+# its direction carries the float32 error of p relative to |p| (~1e-4, the
+# two packages' FFT and sum order).  Measured 9.7e-5 there and ≤ 6.3e-7 at
+# the other steps; the loss itself keeps RTOL.
+AMSE_GRAD_NORM_RTOL = 2e-4
 
 
 def _batches(pair, S, n, seed=1):
@@ -60,8 +69,8 @@ def _batches(pair, S, n, seed=1):
 def _losses(pair):
     lat, _ = equiangular_lat_lon(NLAT, NLON, include_poles=False)
     names = dyn_output_features(pair.cfg.features)
-    return (JaxWeightedLoss.from_config(pair.jax_cfg, lat, names),
-            WeightedLoss.from_config(pair.cfg, lat, names))
+    return (JaxWeightedLoss.from_config(pair.jax_cfg, lat, names, nlon=NLON),
+            WeightedLoss.from_config(pair.cfg, lat, names, nlon=NLON, device="cpu"))
 
 
 @pytest.mark.parametrize("overrides", [
@@ -69,7 +78,8 @@ def _losses(pair):
     ["model.forecast_steps=2", "training.optimizer.detach_gradient_every=1"],
     ["training.accumulate_grad_batches=2", "training.log_additional_stats=true",
      "training.gradient_clip_val=0.05"],
-], ids=["default", "tbptt-S2", "accumulate-2-stats"])
+    ["training.loss_function.type=amse"],
+], ids=["default", "tbptt-S2", "accumulate-2-stats", "amse"])
 def test_train_steps_match_jax(overrides):
     pair = build_pair("training.optimizer.ns_dtype=float32", *overrides)
     jloss, tloss = _losses(pair)
@@ -82,6 +92,7 @@ def test_train_steps_match_jax(overrides):
     start = flax_to_state(jax.tree.map(np.asarray, pair.params), len(pair.model.layers))
     stats = bool(pair.cfg.training.log_additional_stats)
     clip = pair.cfg.training.get("gradient_clip_val", None)
+    amse = pair.cfg.training.loss_function.type == "amse"
 
     S = int(pair.cfg.model.forecast_steps)
     for batch in _batches(pair, S, STEPS):
@@ -92,7 +103,8 @@ def test_train_steps_match_jax(overrides):
         np.testing.assert_allclose(tm["loss_per_step"].numpy(), np.asarray(jm["loss_per_step"]),
                                    rtol=RTOL)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=RTOL)
-        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=RTOL)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=AMSE_GRAD_NORM_RTOL if amse else RTOL)
         if clip is not None and tm["applied"]:
             assert float(tm["grad_norm"]) > float(clip)  # the clip binds
         assert stats == ("grads" in tm)

@@ -162,7 +162,7 @@ assert out.shape == (1, 2, 8, 16, 12) and torch.isfinite(out).all()
 from paradis_torch.train import (WeightedLoss, build_optimizer, create_train_state,
                                  make_train_step)
 names = ["temperature_h500"] * 11 + ["2m_temperature"]
-loss_fn = WeightedLoss.from_config(cfg, lat, names)
+loss_fn = WeightedLoss.from_config(cfg, lat, names, device="cpu")
 optimizer = build_optimizer(cfg, model)
 state = create_train_state(model, optimizer)
 before = model.input_proj.layer0_CLinear.conv.weight.detach().clone()
@@ -170,6 +170,18 @@ batch["target"] = torch.randn(1, 1, 8, 16, 12, generator=g)
 metrics = make_train_step(model, loss_fn, cfg, optimizer)(state, batch, 4)
 assert torch.isfinite(metrics["loss"]) and metrics["applied"] and state.step == 1
 assert not torch.equal(before, model.input_proj.layer0_CLinear.conv.weight)
+
+import tempfile
+from paradis_torch.cli import convert
+from paradis_torch.train.checkpoint import CheckpointManager, load_params
+from paradis_torch.train.convert import torch_state_dict_to_params
+amse = WeightedLoss.from_config(cfg, lat, names, kind="amse", nlon=16, device="cpu")
+assert torch.isfinite(amse(out[:, 0], batch["target"][:, 0]))
+with tempfile.TemporaryDirectory() as d:
+    assert CheckpointManager(d, step_every=1).maybe_save_step(1, state)
+    CheckpointManager(d).restore(state)
+    load_params(d, model)
+assert len(torch_state_dict_to_params({{}}, model)) == len(list(model.parameters()))
 
 import os
 os.environ["PARADIS_INTERP_CHUNK"] = "8"
@@ -190,9 +202,11 @@ print("isolated")
 
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, builds a toy model on the CPU,
-    runs a rollout and takes one NorMuon train step, runs a rollout through
-    the row-chunked path and the weight generation, imports the
-    microbenchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
+    runs a rollout and takes one NorMuon train step, evaluates the AMSE loss,
+    saves, restores and loads a checkpoint, imports the converter and its
+    CLI, runs a rollout through the row-chunked path and the weight
+    generation, imports the microbenchmark, and has loaded nothing of JAX,
+    flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -206,7 +220,9 @@ _IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|paradis_tpu)\b"
 def test_no_jax_import_in_the_port_or_the_smoke_script():
     files = sorted((ROOT / "paradis_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].is_file()
-    for new in ("ops/interp_chunk.py", "ops/interp_gen.py", "tools/bench_interp.py"):
+    for new in ("ops/interp_chunk.py", "ops/interp_gen.py", "tools/bench_interp.py",
+                "ops/sht.py", "train/amse.py", "train/checkpoint.py", "train/convert.py",
+                "cli/convert.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
