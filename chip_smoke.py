@@ -91,6 +91,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    (within 4× the spread), the save and restore seconds and bytes, and a
    weights-only ``load_params`` of that checkpoint into a 5.625° model (U/V
    re-interpolated) that forecasts one finite step through #1.
+   ``[data]``: the native host library (required), synthetic WB2-shaped raw
+   stores at 1.40625° and 5.625° (13 levels, 20 six-hourly times,
+   Blosc-LZ4) built and preprocessed with the port's own pipeline, the
+   median time to assemble one 1.40625° sample, one batch to the card
+   pinned and pageable, and the loader's batch on the card bitwise against
+   the same batch as numpy.  ``[train-loop]``: ``python -m
+   paradis_torch.cli.train`` (its ``main``) on those stores at full width:
+   10 bf16 1.40625° steps with validation and step checkpoints every 4 and
+   a profiler window (the JAX loop's metric names, the JAX checkpoint
+   layout, #5 and #6 16 and 8 times a step, samples/s through the loop
+   beside the device-resident rate above, the device busy share, the
+   synchronizing operations a step), a resume from its own checkpoints for
+   2 more, 8 steps at ``sync_every_n_steps=4`` with no synchronizing
+   operation between sync points, and 10 steps at 5.625° through #1 and #2.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -135,6 +149,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 12. the port's interpolation microbenchmark (``[bench-interp]``,
     ``python3 -m paradis_torch.tools.bench_interp``), all fifteen variants.
 
+A ``[time]`` line after each phase gives the seconds since the start.
 The last lines are the card line, one JSON object with a record per kernel,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script fails before printing any result.
@@ -277,6 +292,26 @@ CKPT_STEPS = 4                 # uninterrupted train steps; the save after half
 # where the two uninterrupted runs agree bitwise, the limit on the resumed
 # run's distance from them, as a share of the largest loss / parameter
 CKPT_FLOOR = 1e-6
+
+# the data pipeline and the host loop ([data], [train-loop])
+DATA_TIMES = 20                # six-hourly times of the synthetic stores
+WB2_BLOSC = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}  # a WB2 download's codec
+DATA_SAMPLES = 5               # samples assembled for the median assembly time
+H2D_REPEATS = 5                # host → device copies of one batch, each way
+LOOP_DATES = ["training.dataset.start_date=2000-01-01", "training.dataset.end_date=2000-01-03",
+              "training.validation_dataset.start_date=2000-01-04",
+              "training.validation_dataset.end_date=2000-01-05",
+              "training.validation_dataset.validation_batches=1",
+              "training.progress_bar=false"]
+LOOP_STEPS = 10                # optimizer steps of the 1.40625° loop
+LOOP_EVERY = 4                 # its validation and step-checkpoint cadence
+LOOP_PROFILE = (2, 2)          # its profiler window: started at step 2, steps 3-4 traced
+LOOP_RESUME_STEPS = 2          # steps of the resumed run
+SYNC_STEPS = 8                 # steps of the sync_every_n_steps=4 run
+LOOP_LR_STEPS = 10             # steps of the 5.625° loop
+LOOP_TURN_STEPS = 5            # steps a turn of the 5.625° step fed in turns (the first untimed)
+LOOP_MODES = ("loader", "cached", "capped")
+LOOP_ROUNDS = 6                # rounds of one turn a mode, each round's order rotated
 
 
 def log(msg: str) -> None:
@@ -1083,13 +1118,15 @@ def profile_steps(run, n_steps: int, wall_per_step_s: float) -> dict:
     tracer slows the host, not the device's work).  Annotated ranges on the
     device timeline (the optimizers' ``record_function`` spans) are not
     kernels and are left out.  ``None`` where the profiler saw no device
-    activity.
+    activity.  The device activity alone is traced: a trace with the host's
+    operators too gives the same kernels and device time at several times
+    the host-side cost (its events outnumber the kernels many times over).
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
@@ -1106,6 +1143,12 @@ def profile_steps(run, n_steps: int, wall_per_step_s: float) -> dict:
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n_steps
                                     for e in top},
     }
+
+
+def part_seconds(marks: list) -> dict:
+    """``{part: seconds}`` from ``[(name, perf_counter()), ...]``: each part
+    from the mark before it (the host clock; where a run's time goes)."""
+    return {name: t - t_prev for (_, t_prev), (name, t) in zip(marks, marks[1:])}
 
 
 def band_on(model, nlat: int, nlon: int) -> bool:
@@ -1209,6 +1252,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     from paradis_torch.model import Paradis
     from paradis_torch.sphere.geometry import equiangular_lat_lon
 
+    marks = [("start", time.perf_counter())]
     dtype = getattr(torch, dtype_name)
     nlat, nlon = grid
     cfg = load_config(overrides=list(overrides))
@@ -1236,6 +1280,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
           else contextlib.nullcontext()):
         rollout(warm, d["n_common"])
     torch.cuda.synchronize()
+    marks.append(("setup", time.perf_counter()))
 
     times, counts, out = [], [], None
     for _ in range(3):
@@ -1248,6 +1293,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     # the path's forward kernel once per layer and step
     expected = expected_launches(n_layers * STEPS if impl == "auto" else 0, 0, banded, chunk_rw)
     median = sorted(times)[1]
+    marks.append(("rollouts", time.perf_counter()))
     ab_times, ab_ok = {"off": [], "on": []}, True
     for turn in (["off", "on", "on", "off"] * ab_pairs)[:2 * ab_pairs]:
         rw = chunk_rw if turn == "on" else 0
@@ -1258,9 +1304,11 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
             torch.cuda.synchronize()
             ab_times[turn].append(time.perf_counter() - t0)
             ab_ok = ab_ok and launch_counts() == expected_launches(n_layers * STEPS, 0, banded, rw)
+    marks.append(("turns", time.perf_counter()))
     short = dict(batch, forcings=batch["forcings"][:, :PROFILE_STEPS])
     profile = profile_steps(lambda: rollout(short, d["n_common"]), PROFILE_STEPS,
                             median / STEPS)
+    marks.append(("profile", time.perf_counter()))
 
     # first step again, routed through the plain interpolation on the card
     model_in = torch.cat([batch["input"], batch["forcings"][:, 0], batch["constants"]], dim=-1)
@@ -1273,6 +1321,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     torch.cuda.synchronize()
     step_err = float((out[:, 0] - plain).abs().max())
     step_scale = float(plain.abs().max())
+    marks.append(("plain_step", time.perf_counter()))
     res = {
         "dtype": dtype_name, "card": card, "grid": [nlat, nlon], "overrides": list(overrides),
         "impl": impl, "band_px": model.band_max_dy_pix, "banded": banded, "chunk_rw": chunk_rw,
@@ -1284,7 +1333,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
         "first_step_max_abs_diff_vs_plain": step_err, "first_step_max_abs": step_scale,
         "first_step_limit": STEP_TOL[dtype_name] * max(step_scale, 1e-3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": profile,
+        "profile": profile, "part_s": part_seconds(marks),
     }
     if ab_pairs:
         res["ab_rollout_s"] = ab_times
@@ -1361,6 +1410,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
                                      create_train_state, make_train_step, set_learning_rate)
 
+    marks = [("start", time.perf_counter())]
     nlat, nlon = grid
     overrides = list(overrides) + ([] if dtype_name == "bfloat16" else ["compute.use_amp=false"])
     cfg = load_config(overrides=overrides)
@@ -1379,6 +1429,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, loss_fn, cfg, optimizer)
     batch = train_batch(d, S, nlat, nlon)
+    marks.append(("setup", time.perf_counter()))
 
     # the first step's parameter gradients, through the plain interpolation
     # and through the kernels (the step's loss at S = 1, unscaled)
@@ -1397,6 +1448,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     grad_scale = float(grads["plain"].abs().max())
     grad_err = float((grads["auto"] - grads["plain"]).abs().max()) / grad_scale
     del grads
+    marks.append(("grad_check", time.perf_counter()))
 
     losses, gnorms, counts, times = [], [], [], []
     for i in range(steps):
@@ -1412,12 +1464,14 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
     median = float(np.median(times[1:]))
+    marks.append(("steps", time.perf_counter()))
 
     def traced():
         for _ in range(TRAIN_PROFILE_STEPS):
             train_step(state, batch, d["n_common"])
 
     profile = profile_steps(traced, TRAIN_PROFILE_STEPS, median)
+    marks.append(("profile", time.perf_counter()))
     # the optimizer's share: one more update on the last gradients, timed
     # alone on the host clock and traced
     opt_times = []
@@ -1429,6 +1483,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
         opt_times.append(time.perf_counter() - t0)
     opt_s = float(np.median(opt_times))
     opt_profile = profile_steps(optimizer.step, 1, opt_s)
+    marks.append(("optimizer", time.perf_counter()))
 
     # the path's forward and backward kernel once per layer and forecast
     # step; the forward twice under checkpointing with remat_policy none (the
@@ -1453,7 +1508,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
         "optimizer_step_wall_ms": opt_s * 1e3, "optimizer_share_of_step_wall": opt_s / median,
         "optimizer_profile": opt_profile,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": profile,
+        "profile": profile, "part_s": part_seconds(marks),
     }
     res["ok"] = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
                  and losses[-1] < losses[0]
@@ -1727,6 +1782,434 @@ def run_checkpoint(card: str) -> dict:
     return res
 
 
+
+def dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+
+
+def run_data(card: str, root: Path) -> dict:
+    """The port's data pipeline on this host and the card: the native host
+    library (required), a synthetic WB2-shaped raw store at 1.40625° and at
+    5.625° (the 13 levels of ``configs/default.yaml``, ``DATA_TIMES``
+    six-hourly times, Blosc-LZ4 as a WeatherBench-2 download) built and
+    preprocessed with the port's ``synthetic`` and ``preprocess``, seconds
+    and bytes on disk; the median ms to assemble one 1.40625° sample and its
+    bytes; the host → device copy of one batch, pinned and ``non_blocking``
+    against pageable; and the loader's first batch on the card bitwise
+    against the same batch assembled as numpy."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data import native
+    from paradis_torch.data.dataset import ERA5Dataset
+    from paradis_torch.data.pipeline import BatchLoader, collate
+    from paradis_torch.data.preprocess import preprocess
+    from paradis_torch.data.synthetic import build_raw_store
+
+    t0 = time.perf_counter()
+    native.require()
+    res = {"card": card, "native_library": native._lib_path().name,
+           "native_build_s": time.perf_counter() - t0, "stores": {}}
+    cfg = load_config()
+    levels = tuple(int(v) for v in cfg.features.pressure_levels)
+    for grid in (HR, (NLAT, NLON)):
+        raw, store = root / f"raw{grid[0]}", root / f"store{grid[0]}"
+        t0 = time.perf_counter()
+        build_raw_store(str(raw), nlat=grid[0], nlon=grid[1], n_times=DATA_TIMES,
+                        levels=levels, start="2000-01-01T00:00:00", seed=0,
+                        compressor=WB2_BLOSC, wb2_layout=True)
+        t1 = time.perf_counter()
+        preprocess(str(raw), str(store))
+        t2 = time.perf_counter()
+        res["stores"][f"{grid[0]}x{grid[1]}"] = {
+            "path": str(store), "build_s": t1 - t0, "preprocess_s": t2 - t1,
+            "raw_bytes": dir_bytes(raw), "store_bytes": dir_bytes(store)}
+
+    cfg = load_config(overrides=[f"dataset.root_dir={root / f'store{HR[0]}'}"])
+    ds = ERA5Dataset(cfg.dataset.root_dir, "2000-01-01", "2000-01-03",
+                     forecast_steps=int(cfg.model.forecast_steps), cfg=cfg)
+    times, sample = [], None
+    for i in range(DATA_SAMPLES):
+        t0 = time.perf_counter()
+        sample = ds[i]
+        times.append(time.perf_counter() - t0)
+    batch = collate([sample])
+    res.update(features=len(ds.features), samples=len(ds),
+               sample_shapes={k: list(v.shape) for k, v in batch.items()},
+               sample_bytes=sum(a.nbytes for a in sample),
+               assemble_ms=[t * 1e3 for t in times],
+               assemble_ms_median=float(np.median(times)) * 1e3)
+
+    def copy(pinned: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = {k: (torch.from_numpy(v).pin_memory().to("cuda", non_blocking=True) if pinned
+                   else torch.from_numpy(v).to("cuda")) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    h2d = {"pageable": [], "pinned": []}
+    for _ in range(H2D_REPEATS):
+        for kind in ("pageable", "pinned"):
+            h2d[kind].append(copy(kind == "pinned")[0] * 1e3)
+    # the copy alone, from buffers pinned beforehand (CUDA events)
+    host = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(H2D_REPEATS):
+        for v in host.values():
+            v.to("cuda", non_blocking=True)
+    end.record()
+    end.synchronize()
+    res.update(h2d_pageable_ms=float(np.median(h2d["pageable"])),
+               h2d_pinned_ms=float(np.median(h2d["pinned"])),
+               h2d_pinned_copy_only_ms=start.elapsed_time(end) / H2D_REPEATS,
+               batch_bytes=sum(v.nbytes for v in batch.values()))
+    res["h2d_pinned_copy_only_gb_per_s"] = (res["batch_bytes"] / 1e6
+                                            / res["h2d_pinned_copy_only_ms"])
+
+    first = next(iter(BatchLoader(ds, 1, shuffle=False, device="cuda")))
+    expected = collate([ds[0]])
+    res["loader_bitwise"] = {k: bool(first[k].device.type == "cuda"
+                                     and np.array_equal(first[k].cpu().numpy(), v))
+                             for k, v in expected.items()}
+    res["ok"] = (all(res["loader_bitwise"].values())
+                 and all(st["store_bytes"] > 0 for st in res["stores"].values()))
+    return res
+
+
+@contextlib.contextmanager
+def counting_steps(record: list):
+    """``paradis_torch.train.loop.make_train_step`` wrapped for the block,
+    under ``torch.cuda.set_sync_debug_mode("warn")``: for each train-step
+    call, the synchronizing CUDA operations (thread, ``file:line``) made
+    inside it and those made since the previous call returned (the loop's
+    own, at its sync points).  ``record`` gets one dict a call and, at the
+    end, the operations after the last call."""
+    import threading
+    import warnings
+
+    import torch
+
+    from paradis_torch.train import loop
+
+    make = loop.make_train_step
+    syncs: list = []
+    last = [0]
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append((threading.current_thread().name, f"{Path(filename).name}:{lineno}"))
+
+    def wrapped_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*a, **k):
+            n0 = len(syncs)
+            out = step(*a, **k)
+            record.append({"before": syncs[last[0]:n0], "inside": syncs[n0:]})
+            last[0] = len(syncs)
+            return out
+
+        return counted
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        loop.make_train_step = wrapped_make
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            loop.make_train_step = make
+            record.append({"after": syncs[last[0]:]})
+
+
+@contextlib.contextmanager
+def timing_saves(store: list):
+    """``CheckpointManager._save`` timed for the block (host clock; a save
+    copies the state to the host, which waits for the device): ``store``
+    gets ``(checkpoint directory, seconds)`` a save."""
+    from paradis_torch.train.checkpoint import CheckpointManager
+
+    save = CheckpointManager._save
+
+    def timed(self, path, state, with_params=True):
+        t0 = time.perf_counter()
+        save(self, path, state, with_params)
+        store.append((f"{path.parent.name}/{path.name}", time.perf_counter() - t0))
+
+    CheckpointManager._save = timed
+    try:
+        yield
+    finally:
+        CheckpointManager._save = save
+
+
+def read_metrics(path: Path) -> dict:
+    """``metrics.csv`` as ``{name: {step: value}}`` (the last value a step)."""
+    import csv
+
+    out: dict = {}
+    with open(path) as f:
+        for step, name, value in list(csv.reader(f))[1:]:
+            out.setdefault(name, {})[int(step)] = float(value)
+    return out
+
+
+def trace_device_ms(path: Path) -> float:
+    """Device time in a ``torch.profiler`` chrome trace: kernels, copies and
+    sets (their ``dur``, microseconds)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+
+
+def loop_in_turns(overrides: list, log_dir: Path) -> dict:
+    """The 5.625° train step of one ``Trainer`` fed in turns by its loader
+    ("loader"), by one batch kept on the card ("cached"), and by its loader
+    with the native host library on one thread ("capped"; it runs on
+    ``os.cpu_count()`` threads otherwise).  Each step does what
+    ``Trainer.fit`` does at ``sync_every_n_steps=1``: the learning rate, the
+    step, ``float(loss)`` and ``float(grad_norm)``; not its logging.  Wall
+    seconds a step on the host clock, the first step of each turn left out
+    (it waits for the loader's first batch).  ``LOOP_ROUNDS`` rounds of one
+    turn a mode, the order rotated each round; the host's rate drifts within
+    a call by more than the loader's cost, so each round's ratios (its
+    loader's and capped turn's median step against its cached turn's)
+    compare the modes, and their quartiles say whether the cost is
+    resolved."""
+    import itertools
+
+    import numpy as np
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data import native
+    from paradis_torch.train import set_learning_rate
+    from paradis_torch.train.loop import Trainer
+
+    trainer = Trainer(load_config(overrides=overrides), log_dir=str(log_dir), device="cuda")
+    num_common = trainer.train_ds.num_common_features
+    cached = next(iter(trainer.train_loader))
+    threads = native.default_threads
+    rounds, losses, k = [], [], 0
+    for r in range(LOOP_ROUNDS):
+        order = LOOP_MODES[r % len(LOOP_MODES):] + LOOP_MODES[:r % len(LOOP_MODES)]
+        step_s: dict = {}
+        for mode in order:
+            batches = itertools.repeat(cached) if mode == "cached" else iter(trainer.train_loader)
+            if mode == "capped":
+                native.default_threads = lambda: 1
+            times = []
+            try:
+                t0 = time.perf_counter()
+                for i, batch in zip(range(LOOP_TURN_STEPS), batches):
+                    set_learning_rate(trainer.optimizer, trainer.schedule(k))
+                    m = trainer.train_step(trainer.state, batch, num_common)
+                    losses.append(float(m["loss"]))
+                    float(m["grad_norm"])
+                    k += 1
+                    t1 = time.perf_counter()
+                    if i:
+                        times.append(t1 - t0)
+                    t0 = t1
+            finally:
+                native.default_threads = threads
+                if hasattr(batches, "close"):
+                    batches.close()
+            step_s[mode] = times
+        rounds.append({"order": list(order), "step_s": step_s})
+    trainer.metrics.close()
+
+    def ratios(mode):
+        return [float(np.median(r["step_s"]["cached"]) / np.median(r["step_s"][mode]))
+                for r in rounds]
+
+    res = {"modes": list(LOOP_MODES), "rounds": rounds, "steps_a_turn": LOOP_TURN_STEPS,
+           "native_threads": threads(),
+           "samples_per_s": {mode: 1.0 / float(np.median([t for r in rounds
+                                                          for t in r["step_s"][mode]]))
+                             for mode in LOOP_MODES}}
+    for mode in ("loader", "capped"):
+        res[f"{mode}_over_cached_by_round"] = ratios(mode)
+        res[f"{mode}_over_cached_quartiles"] = [float(q) for q in
+                                                np.percentile(ratios(mode), [25, 50, 75])]
+    res["ok"] = (all(len(t) == LOOP_TURN_STEPS - 1 for r in rounds for t in r["step_s"].values())
+                 and len(losses) == LOOP_TURN_STEPS * len(LOOP_MODES) * LOOP_ROUNDS
+                 and all(np.isfinite(losses)))
+    return res
+
+
+def run_train_loop(card: str, root: Path, stores: dict, device_rates: dict) -> dict:
+    """``python -m paradis_torch.cli.train`` (its ``main``) on the card at
+    the flagship's full width, fed by the port's pipeline from the [data]
+    stores.
+
+    1.40625° in the bf16 train configuration (``interp_band_rad=0.3``,
+    gradient checkpointing): ``LOOP_STEPS`` steps logged every step,
+    validation on 1 batch and a step checkpoint every ``LOOP_EVERY``, the
+    profiler window of ``LOOP_PROFILE``, the synchronizing operations counted
+    a step (``counting_steps``); the metric names of the JAX loop, the JAX
+    checkpoint layout, #5 and #6 16 and 8 times a step (and #5 8 times a
+    validation batch), then ``init.restart`` from that run's checkpoints for
+    ``LOOP_RESUME_STEPS`` more.  Then ``SYNC_STEPS`` steps at
+    ``sync_every_n_steps=4`` (logging every 4, no checkpoint): the steps
+    between sync points must make no synchronizing operation.  Then the
+    5.625° loop, ``LOOP_LR_STEPS`` steps through #1 and #2, and its step fed
+    in turns (``loop_in_turns``).  Rates: samples/s
+    from ``metrics.csv`` (``samples_per_sec``: a step's wall time from the
+    previous sync point, so a step after a validation, a checkpoint or the
+    profiler's start or stop also pays for them), median over the other steps
+    after the first two, beside the device-resident rate of [train] in this
+    call (``device_rates``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from paradis_torch.cli import train as train_cli
+
+    hr_store, lr_store = stores[f"{HR[0]}x{HR[1]}"]["path"], stores[f"{NLAT}x{NLON}"]["path"]
+    logs = root / "logs"
+    expected_names = {"model/num_parameters", "train_loss", "lr", "dt", "samples_per_sec",
+                      "grad_norm", "forecast_steps", "host_rss_mb", "jit_cache_entries",
+                      "val_loss", "geopotential_h500"}
+
+    saves: list = []
+
+    def main(args, record=None) -> tuple[dict, list, float]:
+        reset_counts()
+        t0 = time.perf_counter()
+        with (counting_steps(record) if record is not None else contextlib.nullcontext(),
+              timing_saves(saves)):
+            result = train_cli.main(args)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result, counts, seconds
+
+    def rate(metrics: dict, skip: set) -> float:
+        steps = [s for s in metrics["samples_per_sec"] if s > 2 and s not in skip]
+        return float(np.median([metrics["samples_per_sec"][s] for s in steps]))
+
+    common = [f"training.log_dir={logs}", *LOOP_DATES]
+    hr_args = ["--device", "cuda", f"dataset.root_dir={hr_store}", *common,
+               *HR_TRAIN_OVERRIDES, "training.experiment_name=hr", "training.log_every_n_steps=1",
+               f"training.validation_dataset.validation_every_n_steps={LOOP_EVERY}",
+               f"training.checkpointing.step_every={LOOP_EVERY}",
+               "training.profiler.enabled=true", f"training.profiler.start_step={LOOP_PROFILE[0]}",
+               f"training.profiler.num_steps={LOOP_PROFILE[1]}"]
+    record: list = []
+    result, counts, seconds = main(hr_args + [f"training.max_steps={LOOP_STEPS}"], record)
+    exp = logs / "hr"
+    metrics = read_metrics(exp / "metrics.csv")
+    n_val = len(metrics.get("val_loss", {}))
+    ckpt = exp / "checkpoints"
+    layout = {rel: (ckpt / rel).is_file() for rel in (
+        "last.json", f"steps/{LOOP_EVERY:08d}/state.pt", f"steps/{2 * LOOP_EVERY:08d}/state.pt",
+        "epochs/0001/state.pt", "epochs/0001/params.pt", "best/best/state.pt",
+        "best/best/params.pt", "best/metric.json")}
+    # a step's wall time includes what the previous sync point did after
+    # its loss: the profiler's start (step 2) and stop and export (step 4),
+    # a validation and checkpoint (steps 4 and 8); steps 3-4 are traced
+    traced = set(range(LOOP_PROFILE[0] + 1, LOOP_PROFILE[0] + LOOP_PROFILE[1] + 1))
+    paid = {s + 1 for s in range(LOOP_EVERY, LOOP_STEPS + 1, LOOP_EVERY)} | {
+        LOOP_PROFILE[0] + 1, LOOP_PROFILE[0] + LOOP_PROFILE[1] + 1}
+    clean = sorted(set(range(3, LOOP_STEPS + 1)) - traced - paid)
+    wall_ms = float(np.median([metrics["dt"][s] for s in clean])) * 1e3
+    device_ms = trace_device_ms(exp / "profile" / "trace.json") / LOOP_PROFILE[1]
+    expected = expected_launches(16 * LOOP_STEPS + 8 * n_val, 8 * LOOP_STEPS, True, 0)
+    hr_saves = list(saves)
+    hr = {
+        "grid": list(HR), "steps": result["steps"], "seconds": seconds,
+        "train_loss": [metrics["train_loss"][s] for s in sorted(metrics["train_loss"])],
+        "val_loss": metrics.get("val_loss"), "metric_names": sorted(metrics),
+        "missing_names": sorted(expected_names - set(metrics)),
+        "checkpoint_layout": layout, "launches": counts, "expected_launches": expected,
+        "validation_batches": n_val,
+        "step_s": [metrics["dt"][s] for s in sorted(metrics["dt"])],
+        "clean_steps": clean, "loop_samples_per_s": rate(metrics, traced | paid),
+        "device_resident_samples_per_s": device_rates["hr"],
+        "profile_device_ms_per_step": device_ms, "busy_share": device_ms / wall_ms,
+        "checkpoint_save_s": hr_saves,
+        "syncs_inside_step": [len(r["inside"]) for r in record if "inside" in r],
+        "syncs_in_loop_after_step": [len(r["before"]) for r in record if "before" in r][1:],
+        "sync_sites": sorted({site for r in record for k in ("inside", "before", "after")
+                              for _, site in r.get(k, [])}),
+        "sync_threads": sorted({t for r in record for k in ("inside", "before", "after")
+                                for t, _ in r.get(k, [])}),
+    }
+    hr["ok"] = (result["steps"] == LOOP_STEPS and all(np.isfinite(hr["train_loss"]))
+                and not hr["missing_names"] and all(layout.values()) and counts == expected)
+
+    # resume from the run's own checkpoints (the root: last.json)
+    record_r: list = []
+    res_r, counts_r, seconds_r = main(hr_args + [
+        f"training.max_steps={LOOP_STEPS + LOOP_RESUME_STEPS}", "init.restart=true",
+        f"init.checkpoint_path={ckpt}"], record_r)
+    after = read_metrics(exp / "metrics.csv")
+    resumed_steps = sorted(s for s in after["train_loss"] if s > LOOP_STEPS)
+    hr["resume"] = {"steps": res_r["steps"], "seconds": seconds_r, "logged_steps": resumed_steps,
+                    "train_loss": [after["train_loss"][s] for s in resumed_steps],
+                    "launched_steps": len([r for r in record_r if "inside" in r]),
+                    "launches": counts_r}
+    hr["resume"]["ok"] = (res_r["steps"] == LOOP_STEPS + LOOP_RESUME_STEPS
+                          and resumed_steps == list(range(LOOP_STEPS + 1,
+                                                          LOOP_STEPS + LOOP_RESUME_STEPS + 1))
+                          and hr["resume"]["launched_steps"] == LOOP_RESUME_STEPS
+                          and all(np.isfinite(hr["resume"]["train_loss"])))
+
+    # sync_every_n_steps=4: no synchronizing operation between sync points
+    record_s: list = []
+    res_s, _, seconds_s = main(["--device", "cuda", f"dataset.root_dir={hr_store}", *common,
+                                *HR_TRAIN_OVERRIDES, "training.experiment_name=hr-sync4",
+                                f"training.max_steps={SYNC_STEPS}",
+                                "training.sync_every_n_steps=4", "training.log_every_n_steps=4",
+                                "training.checkpointing.enabled=false"], record_s)
+    inside = [len(r["inside"]) for r in record_s if "inside" in r]
+    loop_after = [len(r["before"]) for r in record_s if "before" in r][1:] + [
+        len(record_s[-1]["after"])]
+    sync_points = [s for s in range(1, SYNC_STEPS + 1)
+                   if s % 4 == 0 or s <= 1 or s >= SYNC_STEPS]
+    hr["sync4"] = {"steps": res_s["steps"], "seconds": seconds_s, "syncs_inside_step": inside,
+                   "syncs_in_loop_after_step": loop_after, "sync_points": sync_points,
+                   "sync_sites": sorted({site for r in record_s
+                                         for k in ("inside", "before", "after")
+                                         for _, site in r.get(k, [])})}
+    hr["sync4"]["ok"] = (res_s["steps"] == SYNC_STEPS and not any(inside)
+                         and not any(n for s, n in enumerate(loop_after, 1)
+                                     if s not in sync_points))
+
+    # the 5.625° loop: #1 and #2, a host-bound step
+    res_l, counts_l, seconds_l = main(["--device", "cuda", f"dataset.root_dir={lr_store}",
+                                       *common, *TRAIN_OVERRIDES,
+                                       "training.experiment_name=lr",
+                                       "training.log_every_n_steps=1",
+                                       f"training.max_steps={LOOP_LR_STEPS}"])
+    lm = read_metrics(logs / "lr" / "metrics.csv")
+    n_val_l = len(lm.get("val_loss", {}))
+    expected_l = expected_launches(8 * LOOP_LR_STEPS + 8 * n_val_l, 8 * LOOP_LR_STEPS, False, 0)
+    lr = {"grid": [NLAT, NLON], "steps": res_l["steps"], "seconds": seconds_l,
+          "train_loss": [lm["train_loss"][s] for s in sorted(lm["train_loss"])],
+          "step_s": [lm["dt"][s] for s in sorted(lm["dt"])],
+          "loop_samples_per_s": rate(lm, set()),
+          "device_resident_samples_per_s": device_rates["lr"],
+          "launches": counts_l, "expected_launches": expected_l}
+    lr["turns"] = loop_in_turns([f"dataset.root_dir={lr_store}", *common, *TRAIN_OVERRIDES,
+                                 f"training.max_steps="
+                                 f"{LOOP_TURN_STEPS * len(LOOP_MODES) * LOOP_ROUNDS}"],
+                                logs / "lr-turns")
+    lr["ok"] = (res_l["steps"] == LOOP_LR_STEPS and all(np.isfinite(lr["train_loss"]))
+                and counts_l == expected_l and not (expected_names - set(lm)
+                                                    - {"geopotential_h500", "val_loss"})
+                and lr["turns"]["ok"])
+    return {"card": card, "hr": hr, "lr": lr,
+            "ok": hr["ok"] and hr["resume"]["ok"] and hr["sync4"]["ok"] and lr["ok"]}
+
+
 def main() -> int:
     import torch
 
@@ -1742,6 +2225,11 @@ def main() -> int:
 
     card = card_line()
     log(f"[card] {card}")
+    smoke_t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        log(f"[time] {name} done at {time.perf_counter() - smoke_t0:.1f} s")
+
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, devices {torch.cuda.device_count()}")
     log(f"[card] tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
@@ -1769,6 +2257,7 @@ def main() -> int:
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    phase_done("[kernel]")
 
     bwd_checks = []
     for dtype_name in ("float32", "bfloat16"):
@@ -1783,6 +2272,7 @@ def main() -> int:
     bad = [c for c in bwd_checks if not c["ok"]]
     if bad:
         raise SystemExit(f"backward kernel disagrees with its plain version: {bad}")
+    phase_done("[kernel-bwd]")
 
     # the row-banded pair at the 1.40625° shapes, positions clamped to the
     # bound compute.interp_band_rad gives on that grid, and at an odd tail
@@ -1824,6 +2314,7 @@ def main() -> int:
     if bad:
         raise SystemExit(f"banded kernel on unclamped rows disagrees with its plain version, "
                          f"or with the unbanded kernel where no tap leaves its band: {bad}")
+    phase_done("[kernel-band*]")
     torch.cuda.empty_cache()
 
     # the row-chunked pair at the shapes of the two chunked paths, on random
@@ -1853,6 +2344,7 @@ def main() -> int:
     if bad:
         raise SystemExit(f"chunked kernel disagrees with its plain version or the unbanded "
                          f"kernel: {bad}")
+    phase_done("[kernel-chunk*]")
 
     # the weight-generation pair at the microbenchmark's shapes and a tail
     from paradis_torch.tools import bench_interp
@@ -1870,6 +2362,7 @@ def main() -> int:
     bad = [c for c in gen_checks if not c["ok"]]
     if bad:
         raise SystemExit(f"weight-generation kernel disagrees with its plain version: {bad}")
+    phase_done("[kernel-gen]")
 
     # the contraction kernels at the microbenchmark's shapes and a tail shape
     # (V no multiple of a channel block, P none of a position tile)
@@ -1896,6 +2389,7 @@ def main() -> int:
     if bad:
         raise SystemExit(f"contraction kernel disagrees with its plain version, or mm's "
                          f"or mmT's output with its own at another blocking: {bad}")
+    phase_done("[kernel-mm]")
 
     runs, hr_runs, first_step = {}, {}, {}
     for grid, overrides, store in (((NLAT, NLON), (), runs), (HR, HR_OVERRIDES, hr_runs)):
@@ -1919,6 +2413,7 @@ def main() -> int:
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version or the row-chunked kernel on "
                          f"the rollout's inputs: {bad}")
+    phase_done("[forecast], [kernel-rollout]")
     torch.cuda.empty_cache()
 
     # the dense interpolation path: no interpolation kernel at all
@@ -1931,6 +2426,7 @@ def main() -> int:
     if not (dense["ok"] and dense["impl"] == "xla"
             and not any(dense["all_kernel_launches"].values())):
         raise SystemExit(f"dense forecast rollout failed its checks: {dense}")
+    phase_done("[forecast-dense]")
     log(f"[forecast-dense] {NLAT}x{NLON} float32: {dense['forecast_steps_per_s']:.2f} steps/s "
         f"({STEPS}-step rollout, batch 1), device "
         f"{dense['profile']['device_ms_per_step']} ms/step, peak {dense['peak_mem_gb']:.2f} GB "
@@ -1952,6 +2448,8 @@ def main() -> int:
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
 
+    phase_done("[train]")
+
     # the 1.40625° bf16 train step under the policies that keep the
     # interpolation's output (and its positions) through the replay, beside
     # none's run above
@@ -1971,6 +2469,8 @@ def main() -> int:
                  "train_steps_per_s": r["train_steps_per_s"], "peak_mem_gb": r["peak_mem_gb"]}
         for policy, r in remat_trains.items()}))
 
+    phase_done("[train-remat]")
+
     # the 1.40625° bf16 train step with the AMSE spectral loss, beside the
     # reversed Huber run above
     amse = run_train("bfloat16", card, HR, AMSE_OVERRIDES, HR_TRAIN_STEPS, HR_GRAD_TOL)
@@ -1985,6 +2485,8 @@ def main() -> int:
                     "peak_mem_gb": r["peak_mem_gb"], "losses": r["losses"]}
         for r in (hr_trains["bfloat16"], amse)}))
 
+    phase_done("[train-amse]")
+
     # the spherical harmonic transform against a float64 analysis, and timed
     sht_check = check_sht(card)
     log("[sht] " + json.dumps(sht_check))
@@ -1995,6 +2497,8 @@ def main() -> int:
         f"{sht_check['amse_fwd_bwd_ms']:.4f} ms, max rel err "
         f"{sht_check['max_rel_err_vs_float64']:.3g} on {card}")
 
+    phase_done("[sht]")
+
     # save, restore and resume at 1.40625°, and a weights-only transfer to 5.625°
     ckpt = run_checkpoint(card)
     log("[checkpoint] " + json.dumps(ckpt))
@@ -2004,6 +2508,55 @@ def main() -> int:
         f"{ckpt['restore_s']:.2f} s; resumed within {ckpt['resumed_loss_err']:.3g} (loss) and "
         f"{ckpt['resumed_param_err']:.3g} (parameters) of the uninterrupted run, whose "
         f"repeat spread {ckpt['loss_spread']:.3g} / {ckpt['param_spread']:.3g} on {card}")
+
+    phase_done("[checkpoint]")
+
+    # the data pipeline, then the host loop and the training CLI fed by it
+    import tempfile
+
+    data_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="paradis-data-") as data_dir:
+        data = run_data(card, Path(data_dir))
+        data["seconds"] = time.perf_counter() - data_t0
+        log("[data] " + json.dumps(data))
+        if not data["ok"]:
+            raise SystemExit(f"the data pipeline failed its checks: {data}")
+        log(f"[data] native library built in {data['native_build_s']:.1f} s; "
+            + "; ".join(f"{g}: raw store {st['build_s']:.1f} s / {st['raw_bytes']} B, "
+                        f"preprocess {st['preprocess_s']:.1f} s / {st['store_bytes']} B"
+                        for g, st in data["stores"].items())
+            + f"; a 1.40625° sample ({data['sample_bytes']} B) in "
+            f"{data['assemble_ms_median']:.1f} ms; a batch to the card pinned "
+            f"{data['h2d_pinned_ms']:.2f} ms (copy alone {data['h2d_pinned_copy_only_ms']:.2f}), "
+            f"pageable {data['h2d_pageable_ms']:.2f} ms; {data['seconds']:.1f} s on {card}")
+        loop_t0 = time.perf_counter()
+        loop_res = run_train_loop(card, Path(data_dir), data["stores"],
+                                  {"hr": hr_trains["bfloat16"]["train_steps_per_s"],
+                                   "lr": trains["bfloat16"]["train_steps_per_s"]})
+        loop_res["seconds"] = time.perf_counter() - loop_t0
+    log("[train-loop] " + json.dumps(loop_res))
+    if not loop_res["ok"]:
+        raise SystemExit(f"the host training loop failed its checks: {loop_res}")
+    for key in ("hr", "lr"):
+        r = loop_res[key]
+        log(f"[train-loop] {r['grid'][0]}x{r['grid'][1]} bfloat16: "
+            f"{r['loop_samples_per_s']:.3f} samples/s through the loop against "
+            f"{r['device_resident_samples_per_s']:.3f} device-resident on {card}")
+    turns = loop_res["lr"]["turns"]
+    log(f"[train-loop] {NLAT}x{NLON} bfloat16 step in turns: "
+        + ", ".join(f"{m} {r:.3f}" for m, r in turns["samples_per_s"].items())
+        + " samples/s; by round against cached, quartiles: loader "
+        + " / ".join(f"{q:.3f}" for q in turns["loader_over_cached_quartiles"])
+        + ", native library on 1 thread "
+        + " / ".join(f"{q:.3f}" for q in turns["capped_over_cached_quartiles"])
+        + f" ({turns['native_threads']} threads otherwise) on {card}")
+    log(f"[train-loop] 1.40625° busy share {loop_res['hr']['busy_share']:.3f}, syncs a step "
+        f"inside the step {loop_res['hr']['syncs_inside_step']} (sync_every 1), "
+        f"{loop_res['hr']['sync4']['syncs_inside_step']} (sync_every 4); "
+        f"{loop_res['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+
+    phase_done("[data], [train-loop]")
 
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
@@ -2016,6 +2569,8 @@ def main() -> int:
         raise SystemExit(f"backward kernel disagrees with its plain version or the row-chunked "
                          f"kernel on the train step's inputs: {bad}")
     torch.cuda.empty_cache()
+
+    phase_done("[kernel-bwd-train]")
 
     # the serving and training paths through the row-chunked kernels
     chunk_runs, chunk_trains = {}, {}
@@ -2040,6 +2595,8 @@ def main() -> int:
         log(f"[train-chunk] {grid[0]}x{grid[1]} bfloat16 rw {rw}: "
             f"{res['train_steps_per_s']:.2f} train steps/s (batch 1, checkpointing "
             f"{res['gradient_checkpointing']}) on {card}")
+
+    phase_done("[forecast-chunk], [train-chunk]")
 
     # the device time a step of the forecasts and train steps, beside this
     # script's earlier figures (EARLIER_DEVICE_MS)
@@ -2085,6 +2642,8 @@ def main() -> int:
                 and per_op["ns_update"] == {} and all(bench_launches.values()))
     if not bench_ok:
         raise SystemExit(f"the interpolation microbenchmark failed its checks: {bench}")
+
+    phase_done("[bench-interp]")
 
     # one record per kernel variant on the main paths (bicubic), its launches
     # counted in the run of the path that takes it: the forward kernels in

@@ -1,4 +1,9 @@
-"""Data bookkeeping of the PyTorch port (feature names; the dataset is not ported yet)."""
+"""The data pipeline of the PyTorch port: stores (``zarrlite``, ``blosc``,
+the native host library), the synthetic store and the preprocessor, the
+dataset, the loader and the datamodule, and the feature-name bookkeeping.
+
+Only the feature names are imported here; the other modules load on use.
+"""
 
 from paradis_torch.data.features import dyn_output_features, num_common_features
 

@@ -17,6 +17,7 @@ import torch
 # displacement bound for the fast-trig path, radians: ≈6 grid cells at
 # 5.625°, far beyond any physical semi-Lagrangian displacement
 FAST_TRIG_MAX_RAD = 0.6
+EARTH_RADIUS_KM = 6371.0
 
 
 def lonlat_grids(lat_rad: np.ndarray, lon_rad: np.ndarray):
@@ -99,6 +100,21 @@ def latitude_weights(lat_deg: np.ndarray) -> np.ndarray:
             )
         w = np.cos(np.deg2rad(lat))
     return (w / w.mean()).astype(np.asarray(lat_deg).dtype)
+
+
+def normalized_inverse_lon_spacing(lat_rad: np.ndarray, lon_rad: np.ndarray) -> np.ndarray:
+    """Z-scored inverse east-west grid spacing as a 2-D static feature.
+
+    The dataset's ``lon_spacing`` constant, as
+    ``paradis_tpu/sphere/geometry.py:124`` computes it (float64 numpy; the
+    reference's cos² in the arcsin argument and its ``ddof=1`` std).
+    """
+    lat_grid, _ = lonlat_grids(lat_rad, lon_rad)
+    dlon = float(np.diff(np.asarray(lon_rad))[0])
+    inv = 1.0 / (
+        2.0 * np.arcsin(np.cos(lat_grid) ** 2 * np.sin(dlon / 2.0)) * EARTH_RADIUS_KM
+    )
+    return (inv - inv.mean()) / inv.std(ddof=1)
 
 
 def equiangular_lat_lon(nlat: int, nlon: int, include_poles: bool = True):

@@ -172,6 +172,7 @@ assert torch.isfinite(metrics["loss"]) and metrics["applied"] and state.step == 
 assert not torch.equal(before, model.input_proj.layer0_CLinear.conv.weight)
 
 import tempfile
+from pathlib import Path
 from paradis_torch.cli import convert
 from paradis_torch.train.checkpoint import CheckpointManager, load_params
 from paradis_torch.train.convert import torch_state_dict_to_params
@@ -182,6 +183,20 @@ with tempfile.TemporaryDirectory() as d:
     CheckpointManager(d).restore(state)
     load_params(d, model)
 assert len(torch_state_dict_to_params({{}}, model)) == len(list(model.parameters()))
+
+sys.path.insert(0, {tests!r})
+from torch_toy import build_torch_toy_store, torch_toy_config
+from paradis_torch.cli import train as train_cli
+from paradis_torch.data import native
+from paradis_torch.train.loop import Trainer
+with tempfile.TemporaryDirectory() as d:
+    native.require()
+    store = build_torch_toy_store(Path(d))
+    trainer = Trainer(torch_toy_config(store, **{{"training.max_steps": 2,
+                                                 "training.progress_bar": False}}),
+                      log_dir=str(Path(d) / "logs"), device="cpu")
+    assert trainer.fit()["steps"] == 2
+    assert (Path(d) / "logs" / "metrics.csv").is_file()
 
 import os
 os.environ["PARADIS_INTERP_CHUNK"] = "8"
@@ -204,10 +219,13 @@ def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, builds a toy model on the CPU,
     runs a rollout and takes one NorMuon train step, evaluates the AMSE loss,
     saves, restores and loads a checkpoint, imports the converter and its
-    CLI, runs a rollout through the row-chunked path and the weight
-    generation, imports the microbenchmark, and has loaded nothing of JAX,
-    flax or paradis_tpu."""
-    res = subprocess.run([sys.executable, "-c", _ISOLATION.format(root=str(ROOT))],
+    CLI, builds the native host library and a toy store with the port's own
+    synthetic store and preprocessor, trains 2 steps through ``Trainer`` and
+    imports the training CLI, runs a rollout through the row-chunked path and
+    the weight generation, imports the microbenchmark, and has loaded nothing
+    of JAX, flax or paradis_tpu."""
+    res = subprocess.run([sys.executable, "-c",
+                          _ISOLATION.format(root=str(ROOT), tests=str(ROOT / "tests"))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "isolated" in res.stdout
@@ -222,7 +240,11 @@ def test_no_jax_import_in_the_port_or_the_smoke_script():
     assert len(files) > 10 and files[-1].is_file()
     for new in ("ops/interp_chunk.py", "ops/interp_gen.py", "tools/bench_interp.py",
                 "ops/sht.py", "train/amse.py", "train/checkpoint.py", "train/convert.py",
-                "cli/convert.py"):
+                "cli/convert.py", "data/zarrlite.py", "data/blosc.py", "data/native.py",
+                "data/forcings.py", "data/synthetic.py", "data/preprocess.py",
+                "data/dataset.py", "data/pipeline.py", "data/datamodule.py",
+                "utils/logging.py", "utils/system.py", "train/loop.py",
+                "cli/preprocess.py", "cli/train.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]

@@ -82,3 +82,7 @@ def as_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# the port's toy store and config (jax-free, so the gpu tests share them)
+from torch_toy import build_torch_toy_store, torch_toy_config  # noqa: E402,F401
