@@ -105,6 +105,21 @@ Phases, each of which makes the script exit non-zero when it fails:
    synchronizing operations a step), a resume from its own checkpoints for
    2 more, 8 steps at ``sync_every_n_steps=4`` with no synchronizing
    operation between sync points, and 10 steps at 5.625° through #1 and #2.
+   ``[forecast-io]``: ``python -m paradis_torch.cli.forecast`` (its
+   ``main``) on the card from synthetic WB2-shaped stores of 48 (5.625°, 2
+   init times 36 h apart) and 42 (1.40625°, 1 init time, banded) six-hourly
+   times built and preprocessed here, with the seeded flagship's weights
+   saved by ``save_params``: 40 fp32 steps, batch 1, writes every 10 stored
+   steps.  The native library is required and every chunk's Blosc header
+   must name zstd; the store read back must be within a BitRound(16) step
+   of the same batches rolled out in memory and put through the port's
+   postprocessing, finite, its dewpoint depression ≤ 30 and its
+   output-only channels NaN at td 0 and finite after; #1 must run 640 times
+   at 5.625° and #5 320 at 1.40625°; ``evaluate_store`` on the store against
+   the raw and the preprocessed truth must give finite RMSEs at 24, 72 and
+   120 h.  Forecast steps/s through the CLI beside the in-memory rollout's
+   (device-only) rate, the write, copy and evaluate seconds, the store
+   build and preprocess seconds.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -145,7 +160,13 @@ Phases, each of which makes the script exit non-zero when it fails:
     blocks on one set of operands (their grid is their own);
 11. the dense interpolation path (``[forecast-dense]``): a 40-step float32
     rollout at 5.625° with ``compute.advection_impl=xla``, which launches no
-    interpolation kernel, its first step against the plain path;
+    interpolation kernel, its first step against the plain path; then
+    ``[advection-impl]``: one 5.625° fp32 step of the flagship built under
+    ``pallas`` and ``auto_train`` bitwise ``auto``'s with its launches, and
+    under ``gather`` (taps index-clamped, plain torch) finite with no
+    interpolation kernel launched, held against the plain version on each
+    layer's recorded inputs where every tap of a position is inside the
+    field;
 12. the port's interpolation microbenchmark (``[bench-interp]``,
     ``python3 -m paradis_torch.tools.bench_interp``), all fifteen variants.
 
@@ -312,6 +333,21 @@ LOOP_LR_STEPS = 10             # steps of the 5.625° loop
 LOOP_TURN_STEPS = 5            # steps a turn of the 5.625° step fed in turns (the first untimed)
 LOOP_MODES = ("loader", "cached", "capped")
 LOOP_ROUNDS = 6                # rounds of one turn a mode, each round's order rotated
+
+# forecast I/O ([forecast-io]): python -m paradis_torch.cli.forecast from a
+# store on disk, at each grid: the raw store's six-hourly times (n_time_inputs
+# + prediction_shift + 40 past the first init, and one sampling interval more
+# for a second init), the CLI's end date, its init times, and its overrides
+FIO_START = "2000-01-01T06"    # the first init: sample 0's last input time
+FIO_INTERVAL = "36h"           # --sampling-interval
+FIO_GRIDS = {(NLAT, NLON): (48, "2000-01-03", 2, []),
+             HR: (42, "2000-01-01", 1, HR_OVERRIDES)}
+FIO_WRITE_EVERY = 10           # --write-every-n
+FIO_VARIABLES = [("geopotential", 500), ("temperature", 850)]
+FIO_LEADS = [24, 72, 120]      # hours scored by evaluate_store
+# BitRound(16) keeps 16 of float32's 23 mantissa bits: a stored value is
+# within half a step, 2^-17 of its magnitude, of what was written
+BITROUND_STEP = 2.0 ** -16
 
 
 def log(msg: str) -> None:
@@ -1879,6 +1915,226 @@ def run_data(card: str, root: Path) -> dict:
     return res
 
 
+def run_forecast_io(card: str, root: Path) -> dict:
+    """``python -m paradis_torch.cli.forecast`` (its ``main``, in process) on
+    the card at both grids from synthetic WB2-shaped stores built and
+    preprocessed here, with the seeded flagship's weights saved by
+    ``save_params``: 40 fp32 steps, batch 1, writes every
+    ``FIO_WRITE_EVERY`` stored steps.  Gates: the native library present
+    and every chunk Blosc-zstd; the store's td 1..40 within
+    ``BITROUND_STEP`` of the same batch rolled out by
+    ``make_forecast_rollout`` and put through the port's postprocessing in
+    memory (that rollout, timed, is also the device-only rate); every stored
+    forecast value finite; the dewpoint depression ≤ 30; output-only
+    channels NaN at td 0 and finite after; exact launch counts; finite
+    ``evaluate_store`` RMSEs at ``FIO_LEADS`` against the raw store
+    (``WB2TruthReader``) and the preprocessed one (``TruthReader``)."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.cli import forecast as forecast_cli
+    from paradis_torch.config import load_config
+    from paradis_torch.data import native, zarrlite
+    from paradis_torch.data.dataset import ERA5Dataset
+    from paradis_torch.data.pipeline import collate_prediction
+    from paradis_torch.data.preprocess import preprocess
+    from paradis_torch.data.synthetic import build_raw_store
+    from paradis_torch.forecast import make_forecast_rollout
+    from paradis_torch.forecast.evaluate import evaluate_store
+    from paradis_torch.forecast.writer import _renamed_vars, chunk_codecs
+    from paradis_torch.model import Paradis
+    from paradis_torch.train.checkpoint import save_params
+    from paradis_torch.utils.postprocessing import (convert_cartesian_to_spherical_winds,
+                                                    denormalize_forecast, feature_indices)
+    from paradis_torch.utils.thermo import dewpoint_depression
+
+    native.require()
+    res = {"card": card, "ok": True}
+    for grid, (n_times, end_date, inits, overrides) in FIO_GRIDS.items():
+        key = f"{grid[0]}x{grid[1]}"
+        raw, store = root / f"fio_raw{grid[0]}", root / f"fio_store{grid[0]}"
+        t0 = time.perf_counter()
+        build_raw_store(str(raw), nlat=grid[0], nlon=grid[1], n_times=n_times,
+                        levels=tuple(int(v) for v in load_config().features.pressure_levels),
+                        start="2000-01-01T00:00:00", seed=0, compressor=WB2_BLOSC,
+                        wb2_layout=True)
+        t1 = time.perf_counter()
+        preprocess(str(raw), str(store))
+        t2 = time.perf_counter()
+        r = {"grid": list(grid), "raw_times": n_times, "build_s": t1 - t0,
+             "preprocess_s": t2 - t1, "raw_bytes": dir_bytes(raw),
+             "store_bytes": dir_bytes(store)}
+
+        # the configuration the CLI builds, the seeded flagship's weights saved
+        args = [f"dataset.root_dir={store}", *overrides]
+        cfg = load_config(overrides=args)
+        cfg.forecast.enable = True
+        cfg.model.forecast_steps = STEPS
+        cfg.compute.use_amp = False
+        ds = ERA5Dataset(str(store), FIO_START, end_date, forecast_steps=STEPS, cfg=cfg,
+                         time_interval=FIO_INTERVAL, prediction_stage=True)
+        model = Paradis.from_config(cfg, input_dim=ds.num_in_features,
+                                    output_dim=ds.num_out_features, lat_deg=ds.lat,
+                                    lon_deg=ds.lon, dtype=torch.float32, device="cuda")
+        params = root / f"fio_params{grid[0]}.pt"
+        save_params(params, model)
+
+        # the same batches rolled out in memory: the reference, and the device rate
+        rollout = make_forecast_rollout(model, cfg)
+        refs, device_s = [], []
+        for i in range(len(ds)):
+            batch = {k: v if k == "index" else torch.from_numpy(v).cuda()
+                     for k, v in collate_prediction([ds[i]]).items()}
+            rollout(dict(batch, forcings=batch["forcings"][:, :2]), ds.num_common_features)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stored = rollout(batch, ds.num_common_features)
+            torch.cuda.synchronize()
+            device_s.append(time.perf_counter() - t0)
+            refs.append(stored.cpu().numpy())
+        del model
+        torch.cuda.empty_cache()
+
+        out = root / f"fio_forecast{grid[0]}.zarr"
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = forecast_cli.main([
+            "--checkpoint-path", str(params), "--output-file", str(out),
+            "--forecast-steps", str(STEPS), "--sampling-interval", FIO_INTERVAL,
+            "--start-date", FIO_START, "--end-date", end_date, "--batch-size", "1",
+            "--write-every-n", str(FIO_WRITE_EVERY), "--device", "cuda", *args])
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        expected = expected_launches(8 * STEPS * inits, 0, grid == HR, 0)
+        r.update(cli_s=cli_s, stats=stats, launches=launches, expected_launches=expected,
+                 samples=len(ds), forecast_steps_per_s_cli=stats["forecast_steps_per_s"],
+                 forecast_steps_per_s_device=STEPS * len(ds) / sum(device_s),
+                 device_rollout_s=device_s, write_bytes=dir_bytes(out))
+
+        # the store read back against the in-memory postprocessing
+        codecs = chunk_codecs(out)
+        r["codecs"] = sorted(set().union(*codecs.values()))
+        g = zarrlite.open_store(out)
+        levels = [int(v) for v in cfg.features.pressure_levels]
+        features = list(ds.dyn_output_features)
+        atmo, surf = _renamed_vars(cfg)
+        worst, finite = 0.0, True
+        for i, stored in enumerate(refs):
+            x = np.moveaxis(stored, -1, 2).copy()  # [1, 40, C, H, W], normalized
+            denormalize_forecast(x, ds)
+            convert_cartesian_to_spherical_winds(ds.lat, ds.lon, levels, x, features)
+            levels_pa = np.asarray(levels, np.float64)[:, None, None] * 100.0
+            fields = {o: x[0][:, feature_indices(n, features)] for n, o in atmo}
+            fields.update({o: x[0][:, features.index(n)] for n, o in surf})
+            fields["dewpoint_depression"] = dewpoint_depression(
+                fields["specific_humidity"], fields["temperature"], levels_pa
+            ).astype(np.float32)
+            for name, ref in fields.items():
+                got = np.asarray(g[name][i, 1:], np.float64)
+                finite = finite and bool(np.isfinite(got).all())
+                gap = np.abs(got - ref) - BITROUND_STEP * np.abs(ref)
+                worst = max(worst, float(np.nanmax(gap)))
+        dd = np.asarray(g["dewpoint_depression"][...])
+        tp = np.asarray(g["total_precipitation_6hr"][...])
+        r.update(readback_worst_over_bitround=worst, readback_ok=worst <= 0.0,
+                 forecast_finite=finite, dewpoint_max=float(np.nanmax(dd)),
+                 output_only_nan_at_td0=bool(np.isnan(tp[:, 0]).all()),
+                 output_only_finite_after=bool(np.isfinite(tp[:, 1:]).all()))
+
+        # scored against the raw archive and the preprocessed store
+        scores = {}
+        for truth in (raw, store):
+            t0 = time.perf_counter()
+            scored = evaluate_store(str(out), str(truth), FIO_VARIABLES, FIO_LEADS,
+                                    climatology=str(store / "climatology"), device="cuda")
+            scores["raw" if truth == raw else "preprocessed"] = {
+                "seconds": time.perf_counter() - t0, "scores": scored}
+        rmse_keys = [f"{v}_h{lv}@{h}h" for v, lv in FIO_VARIABLES for h in FIO_LEADS]
+        r["evaluate"] = scores
+        r["evaluate_finite"] = all(k in sc["scores"] and np.isfinite(sc["scores"][k])
+                                   for sc in scores.values() for k in rmse_keys)
+        r["ok"] = (r["codecs"] == ["zstd"] and r["readback_ok"] and finite
+                   and r["dewpoint_max"] <= 30.0 and r["output_only_nan_at_td0"]
+                   and r["output_only_finite_after"] and launches == expected
+                   and len(ds) == inits and stats["samples"] == inits
+                   and stats["steps"] == STEPS * inits and r["evaluate_finite"])
+        res[key] = r
+        res["ok"] = res["ok"] and r["ok"]
+    return res
+
+
+def check_advection_impls(card: str) -> dict:
+    """One fp32 forecast step of the seeded 5.625° flagship built under each
+    ``compute.advection_impl`` value.  ``pallas`` and ``auto_train``: bitwise
+    ``auto``'s output with its launch counts.  ``gather``: finite, no
+    interpolation kernel launched; the gather formulation index-clamps a tap
+    outside the padded field where the kernels drop it, so on each layer's
+    inputs of ``auto``'s step (recorded) it is held against the plain
+    version where every tap of a position is inside (``KERNEL_TOL``), and
+    the whole step against ``auto``'s within ``STEP_TOL`` when no tap of any
+    layer leaves the field (else that gap is reported, not gated)."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.model import Paradis
+    from paradis_torch.ops.advection import AUTO_ALIASES
+    from paradis_torch.ops.interp import interp_gather, interp_plain, tap_weights
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+
+    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
+    rng = np.random.default_rng(0)
+    x = None
+    outs, counts, captured = {}, {}, []
+    for impl in ("auto", *AUTO_ALIASES, "gather"):
+        cfg = load_config(overrides=[f"compute.advection_impl={impl}",
+                                     "compute.use_amp=false"])
+        d = flagship_dims(cfg)
+        if x is None:
+            x = torch.tensor(rng.normal(size=(1, NLAT, NLON, d["input_dim"])),
+                             dtype=torch.float32, device="cuda")
+        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
+                                    lat_deg=lat, lon_deg=lon, device="cuda")
+        reset_counts()
+        with torch.inference_mode(), (recording_fwd(captured, len(model.layers))
+                                      if impl == "auto" else contextlib.nullcontext()):
+            outs[impl] = model(x).float()
+        torch.cuda.synchronize()
+        counts[impl] = launch_counts()
+        del model
+    auto = outs["auto"]
+    res = {"card": card, "launches": counts,
+           "aliases_bitwise_auto": {i: bool(torch.equal(outs[i], auto)) for i in AUTO_ALIASES}}
+    atol, rtol = KERNEL_TOL["float32"]
+    worst, outside, total = 0.0, 0, 0
+    for field, py, px, mode in captured:
+        field, py, px = field.cuda(), py.cuda(), px.cuda()
+        R, C = field.shape[1:3]
+        inside = torch.ones_like(py, dtype=torch.bool)
+        for pos, size in ((py, R), (px, C)):
+            i0, offsets, _ = tap_weights(pos, mode)
+            inside &= (i0 + offsets[0] >= 0) & (i0 + offsets[-1] <= size - 1)
+        outside += int((~inside).sum())
+        total += inside.numel()
+        ref, got = interp_plain(field, py, px, mode), interp_gather(field, py, px, mode)
+        over = ((got - ref).abs() - (atol + rtol * ref.abs()))[inside]
+        worst = max(worst, float(over.max()) if over.numel() else 0.0)
+    gap = float((outs["gather"] - auto).abs().max())
+    limit = STEP_TOL["float32"] * float(auto.abs().max())
+    res.update(gather_finite=bool(torch.isfinite(outs["gather"]).all()),
+               gather_layers_recorded=len(captured),
+               gather_positions_with_a_tap_outside=outside, gather_positions=total,
+               gather_layer_worst_over_limit_inside=worst,
+               gather_step_max_abs_diff_vs_auto=gap, gather_step_limit=limit,
+               gather_step_gated=outside == 0)
+    res["ok"] = (all(res["aliases_bitwise_auto"].values())
+                 and all(counts[i] == counts["auto"] for i in AUTO_ALIASES)
+                 and counts["auto"] == expected_launches(8, 0, False, 0)
+                 and counts["gather"] == [0] * 6 and res["gather_finite"]
+                 and len(captured) == 8 and worst <= 0.0 and (outside > 0 or gap <= limit))
+    return res
+
+
 @contextlib.contextmanager
 def counting_steps(record: list):
     """``paradis_torch.train.loop.make_train_step`` wrapped for the block,
@@ -2432,6 +2688,13 @@ def main() -> int:
         f"{dense['profile']['device_ms_per_step']} ms/step, peak {dense['peak_mem_gb']:.2f} GB "
         f"on {card}")
 
+    # the compute.advection_impl values of the JAX package on one forecast step
+    impls = check_advection_impls(card)
+    log("[advection-impl] " + json.dumps(impls))
+    if not impls["ok"]:
+        raise SystemExit(f"a compute.advection_impl value failed its checks: {impls}")
+    phase_done("[advection-impl]")
+
     trains, hr_trains, first_bwd = {}, {}, {}
     for grid, overrides, steps, tol, store in (
             ((NLAT, NLON), TRAIN_OVERRIDES, TRAIN_STEPS, GRAD_TOL, trains),
@@ -2557,6 +2820,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_done("[data], [train-loop]")
+
+    # forecast I/O: the forecast CLI writes a WB2 store from the card, scored
+    fio_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="paradis-fio-") as fio_dir:
+        fio = run_forecast_io(card, Path(fio_dir))
+    fio["seconds"] = time.perf_counter() - fio_t0
+    log("[forecast-io] " + json.dumps(fio))
+    if not fio["ok"]:
+        raise SystemExit(f"the forecast CLI, its store or its scores failed their checks: {fio}")
+    for key in (f"{NLAT}x{NLON}", f"{HR[0]}x{HR[1]}"):
+        r = fio[key]
+        st = r["stats"]
+        log(f"[forecast-io] {key} float32 through cli.forecast: "
+            f"{r['forecast_steps_per_s_cli']:.3f} steps/s ({r['samples']} init(s) x {STEPS} "
+            f"steps, batch 1) against {r['forecast_steps_per_s_device']:.3f} device-only; "
+            f"rollout {st['rollout_s']:.2f} s, device-to-host copy {st['copy_s']:.3f} s "
+            f"({st['copy_bytes']} B), writes {st['write_s']:.2f} s ({r['write_bytes']} B "
+            f"on disk), evaluate {r['evaluate']['raw']['seconds']:.2f} s (raw) / "
+            f"{r['evaluate']['preprocessed']['seconds']:.2f} s (preprocessed); store "
+            f"build {r['build_s']:.1f} s, preprocess {r['preprocess_s']:.1f} s on {card}")
+    torch.cuda.empty_cache()
+
+    phase_done("[forecast-io]")
 
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
@@ -2685,6 +2971,12 @@ def main() -> int:
                     if extra in c:
                         rec[extra] = c[extra]
                 kernels.append(rec)
+    # the forecast CLI's launches beside the fp32 records of its kernels
+    for k in kernels:
+        if k["name"] == "interp_fwd[bicubic,float32]":
+            k["cli_forecast_launches"] = fio[f"{NLAT}x{NLON}"]["launches"][0]
+        if k["name"] == "interp_band_fwd[bicubic,float32]":
+            k["cli_forecast_launches"] = fio[f"{HR[0]}x{HR[1]}"]["launches"][2]
     for c in rollout_checks:
         kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,

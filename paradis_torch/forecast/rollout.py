@@ -1,13 +1,20 @@
-"""Autoregressive forecast rollout.
+"""Autoregressive forecast rollout with chunked host writes.
 
-Port of ``paradis_tpu/forecast/rollout.py:make_forecast_rollout``: the model
-steps once per forcing time step, the lagged input stack shifts after each
-step (``autoregress_next_input``), and every ``output_frequency``-th output is
-kept.  Runs eagerly under ``torch.inference_mode()`` on the model's device.
+Port of ``paradis_tpu/forecast/rollout.py``.  ``make_forecast_rollout``: the
+model steps once per forcing time step, the lagged input stack shifts after
+each step (``autoregress_next_input``), and every ``output_frequency``-th
+output is kept; it runs eagerly under ``torch.inference_mode()`` on the
+model's device.  ``run_forecast``: for each batch of init times, one rollout
+on the device, one device → host copy of its stored steps, and region writes
+of ``forecast.write_every_n`` stored steps at a time to the WB2-layout store
+(reference ``predict_step``, ``trainer.py:731-815``).
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 
@@ -56,3 +63,75 @@ def make_forecast_rollout(model, cfg):
             return torch.stack(stored, dim=1).float()
 
     return rollout
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_forecast(model, dataset, cfg, writer, batch_loader, mesh=None) -> dict:
+    """Forecast every sample of ``dataset`` and write the WB2 store.
+
+    ``batch_loader`` is a prediction-mode ``BatchLoader`` on the model's
+    device (the rollout raises on a batch elsewhere).  One device only: a
+    ``mesh`` or a multi-device ``compute`` setting raises before any store
+    is written (ROADMAP.md, Queue 1 item 8).
+    On a card the native host library is required, so that the store's
+    chunks are Blosc-zstd and never the zlib frames its absence would give.
+
+    Returns the host-clock seconds of the run and of its parts, for the
+    caller to report: ``seconds`` (all of it), ``rollout_s`` (the rollouts,
+    to the end of their device work), ``copy_s`` (the device → host copies),
+    ``write_s`` (postprocessing and region writes, ``init_store`` included),
+    with ``steps`` (forecast steps taken, summed over init times),
+    ``samples``, ``copy_bytes`` and ``forecast_steps_per_s`` (steps over
+    ``seconds``).
+    """
+    from paradis_torch.train.loop import check_single_device
+
+    if mesh is not None:
+        raise NotImplementedError("paradis_torch forecasts on one device; a mesh needs "
+                                  "multi-GPU runs, which are not ported yet (ROADMAP.md, "
+                                  "Queue 1 item 8)")
+    check_single_device(cfg, "forecasts")
+    device = model.device
+    if device.type == "cuda":
+        from paradis_torch.data import native
+
+        native.require()
+    start = time.perf_counter()
+    rollout = make_forecast_rollout(model, cfg)
+    stats = dict(rollout_s=0.0, copy_s=0.0, write_s=0.0, steps=0, samples=0, copy_bytes=0)
+    t0 = time.perf_counter()
+    writer.init_store(dataset)
+    stats["write_s"] += time.perf_counter() - t0
+    write_every = int(cfg.forecast.get("write_every_n") or writer.stored_steps)
+
+    for batch in batch_loader:
+        sample_idx = np.asarray(batch.pop("index"))
+        t0 = time.perf_counter()
+        stored = rollout(batch, dataset.num_common_features)  # [B, T_stored, H, W, C]
+        _sync(device)
+        t1 = time.perf_counter()
+        stored = stored.cpu().numpy()
+        t2 = time.perf_counter()
+        stored = np.moveaxis(stored, -1, 2)  # [B, T_stored, C, H, W]
+        t_total = stored.shape[1]
+        for lo in range(0, t_total, write_every):
+            hi = min(lo + write_every, t_total)
+            writer.write_forecast_chunk(
+                forecast=stored[:, lo:hi],
+                sample_indices=sample_idx,
+                start_idx=lo,
+                dataset=dataset,
+            )
+        stats["rollout_s"] += t1 - t0
+        stats["copy_s"] += t2 - t1
+        stats["write_s"] += time.perf_counter() - t2
+        stats["steps"] += len(sample_idx) * batch["forcings"].shape[1]
+        stats["samples"] += len(sample_idx)
+        stats["copy_bytes"] += stored.nbytes
+    stats["seconds"] = time.perf_counter() - start
+    stats["forecast_steps_per_s"] = stats["steps"] / stats["seconds"]
+    return stats

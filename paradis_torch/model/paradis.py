@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from paradis_torch import resolve_device
-from paradis_torch.ops.advection import INTERP_IMPLS, NeuralSemiLagrangian
+from paradis_torch.ops.advection import AUTO_ALIASES, INTERP_IMPLS, NeuralSemiLagrangian
 from paradis_torch.ops.blocks import GMBlock, PhysicalDownsample, SepConv, _Depthwise, get_activation
 from paradis_torch.ops.resize import periodic_upsample
 from paradis_torch.sphere.geometry import lonlat_grids
@@ -43,6 +43,8 @@ from paradis_torch.sphere.padding import geocyclic_pad
 
 EARTH_ROTATION_RATE = 7.29212e-5  # rad/s
 STATIC_DIM = 128  # static-encoder output width
+# the compute.advection_impl values of configs/default.yaml and the JAX package
+CONFIG_IMPLS = ("auto", "pallas", "auto_train", "xla", "gather")
 
 
 def get_scaled_timestep(dt_seconds: float) -> float:
@@ -230,17 +232,21 @@ class Paradis(nn.Module):
 
         ``dtype`` defaults to bfloat16 under ``compute.use_amp`` and float32
         otherwise; ``seed`` to ``init.seed``.  ``compute.advection_impl`` is
-        ``auto`` (the kernels on a card, the plain versions on the CPU) or
-        ``xla`` (the dense contraction of ``ops/interp_dense.py`` in every
-        layer).  Raises on a setting the port cannot honour yet.
+        ``auto`` (the kernels on a card, the plain versions on the CPU),
+        ``pallas`` or ``auto_train`` (the JAX package's names of its kernel
+        path: the same as ``auto``), ``xla`` (the dense contraction of
+        ``ops/interp_dense.py`` in every layer) or ``gather`` (the JAX
+        package's gather formulation, ``ops/interp.py:interp_gather``, taps
+        index-clamped into the field).  Raises on any other value.
         """
         pb = cfg.model.physblock
         compute = cfg.compute
         impl = compute.get("advection_impl", "auto")
-        if impl not in ("auto", "xla"):
-            raise ValueError(f"compute.advection_impl={impl!r}: paradis_torch takes 'auto' "
-                             f"(the kernel on a card, the plain version on the CPU) or 'xla' "
-                             f"(the dense contraction)")
+        if impl not in CONFIG_IMPLS:
+            raise ValueError(f"compute.advection_impl={impl!r}: paradis_torch takes one of "
+                             f"{CONFIG_IMPLS}: 'auto', 'pallas' and 'auto_train' (the kernel "
+                             f"on a card, the plain version on the CPU), 'xla' (the dense "
+                             f"contraction) or 'gather' (the index-clamped gather)")
         if dtype is None:
             dtype = torch.bfloat16 if compute.use_amp else torch.float32
         if seed is None:
@@ -290,7 +296,9 @@ class Paradis(nn.Module):
         return self.lat_grid.device
 
     def set_interp_impl(self, impl: str) -> None:
-        """Route every layer's interpolation through ``impl`` (auto | plain | xla)."""
+        """Route every layer's interpolation through ``impl`` (auto | plain |
+        xla | gather; ``pallas`` and ``auto_train`` set ``auto``)."""
+        impl = "auto" if impl in AUTO_ALIASES else impl
         if impl not in INTERP_IMPLS:
             raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
         for layer in self.layers:

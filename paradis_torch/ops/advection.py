@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from paradis_torch.ops.blocks import GMBlock
-from paradis_torch.ops.interp import check_mode
+from paradis_torch.ops.interp import check_mode, interp_gather
 from paradis_torch.ops.interp_band import band_spec
 from paradis_torch.ops.interp_chunk import chunk_rows as resolve_chunk_rows
 from paradis_torch.ops.interp_cuda import interp
@@ -24,7 +24,9 @@ from paradis_torch.ops.interp_dense import interp_dense
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad
 
-INTERP_IMPLS = ("auto", "plain", "xla")
+INTERP_IMPLS = ("auto", "plain", "xla", "gather")
+# the JAX package's names of its kernel path: Paradis.set_interp_impl makes them auto
+AUTO_ALIASES = ("pallas", "auto_train")
 
 
 def enforce_pole_continuity(x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +125,10 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
     JAX package's dense path (``compute.advection_impl: xla``): the dense
     contraction of ``paradis::interp_dense`` (``interp_dense.interp_dense``)
     on any device, which, as there, takes no band plan and no chunk size.
+    ``gather`` is the JAX package's gather formulation
+    (``interp.interp_gather``: taps index-clamped into the field, plain
+    PyTorch with autograd on any device; there was no TPU kernel behind it),
+    which takes no band plan and no chunk size either.
 
     ``shift`` moves the positions into the padded field (the model passes
     its pad).  ``max_dy_pix`` is part of the op's contract on every backend:
@@ -146,6 +152,8 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
                                            None if max_dy_pix is None else float(max_dy_pix))
     if impl == "xla":
         return interp_dense(field, pix_y, pix_x, mode)
+    if impl == "gather":
+        return interp_gather(field, pix_y, pix_x, mode)
     spec = None if max_dy_pix is None else band_spec(H, W, R, mode, max_dy_pix)
     rw = 0 if spec is not None else resolve_chunk_rows(R, chunk_rows)
     return interp(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
@@ -155,8 +163,9 @@ class NeuralSemiLagrangian(nn.Module):
     """Learned semi-Lagrangian transport of the latent state.
 
     ``impl`` is ``auto``; ``Paradis.set_interp_impl`` switches it to
-    ``xla`` (``compute.advection_impl: xla``, set by ``Paradis.from_config``)
-    or to ``plain``, to hold the kernel path against the plain one on a card.
+    ``xla`` or ``gather`` (``compute.advection_impl``, set by
+    ``Paradis.from_config``) or to ``plain``, to hold the kernel path against
+    the plain one on a card.
     ``band_max_dy_pix`` bounds the departure rows in pixels
     (``compute.interp_band_rad``, converted by the model), which licenses the
     row-banded kernels; None leaves the rows free.

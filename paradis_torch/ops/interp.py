@@ -20,6 +20,12 @@ zero at the bilinear kinks, where autograd of ``1 − t, t`` would give ∓1.
 These versions serve the CPU (tests, CPU runs) and are what the CUDA kernels
 (``csrc/interp_fwd.cu``, ``csrc/interp_bwd.cu``) are held against on the
 card; the forecast and train paths on a card never call them.
+
+``interp_gather`` is another function: the JAX package's gather formulation
+(``paradis_tpu/ops/interp.py:grid_sample_interp(method="gather")``,
+``compute.advection_impl: gather``), which index-clamps a tap outside the
+field onto its edge.  No TPU kernel stood behind it, so this plain version,
+differentiated by autograd, is its port on every device.
 """
 
 from __future__ import annotations
@@ -161,3 +167,34 @@ def interp_bwd_plain(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tens
         acc_x = acc_x + torch.where(r_ok, w_row * row_dw, 0.0)
     d_field = d_flat.reshape(B, R, C, V).to(field.dtype)
     return (d_field, (gf * acc_y).reshape(B, H, W, V), (gf * acc_x).reshape(B, H, W, V))
+
+
+def interp_gather(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """The JAX gather formulation: ``[B, R, C, V]`` field, ``[B, H, W, V]``
+    positions, ``[B, H, W, V]`` output in the field's dtype.
+
+    Each tap's row and column are clamped into the field, so a tap outside
+    it reads the edge (the other paths drop it); the 4 (bilinear) or 16
+    (bicubic) taps are gathered with ``take_along_dim`` and summed in
+    float32 in the JAX order, rows outer.  Autograd gives the backward:
+    ``floor`` has no gradient, so d_py and d_px are the tap weights'
+    derivatives (``−1, +1`` at a bilinear kink, as JAX's autodiff of
+    ``1 − t, t``) and d_field scatters through the gather.
+    """
+    check_mode(mode)
+    B, R, C, V = field.shape
+    _, H, W, _ = pix_y.shape
+    py = pix_y.float().reshape(B, H * W, V)
+    px = pix_x.float().reshape(B, H * W, V)
+    flat = field.float().reshape(B, R * C, V)
+    y0, y_off, wy = tap_weights(py, mode)
+    x0, x_off, wx = tap_weights(px, mode)
+    y0, x0 = y0.long(), x0.long()
+    acc = torch.zeros_like(py)
+    for dy, row_w in zip(y_off, wy):
+        yi = torch.clamp(y0 + dy, 0, R - 1)
+        for dx, col_w in zip(x_off, wx):
+            xi = torch.clamp(x0 + dx, 0, C - 1)
+            acc = acc + row_w * col_w * torch.take_along_dim(flat, yi * C + xi, dim=1)
+    return acc.reshape(B, H, W, V).to(field.dtype)

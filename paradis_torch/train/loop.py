@@ -57,18 +57,17 @@ def _host_rss_mb() -> float:
         return 0.0
 
 
-def _check_single_device(cfg) -> None:
-    """Refuse the multi-device settings: multi-GPU training is not ported
-    (``ROADMAP.md``, Queue 1 item 8)."""
+def check_single_device(cfg, what: str = "trains") -> None:
+    """Refuse the multi-device settings: multi-GPU training and forecasting
+    are not ported (``ROADMAP.md``, Queue 1 item 8)."""
     compute = cfg.compute
     many = {k: int(compute.get(k, 1) or 1)
             for k in ("num_devices", "spatial_devices", "lat_devices", "num_nodes")}
     wide = {k: v for k, v in many.items() if v > 1}
     if wide or compute.get("coordinator_address", None):
         raise NotImplementedError(
-            f"paradis_torch trains on one device; {wide or 'compute.coordinator_address'} "
-            f"needs multi-GPU training, which is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 8)")
+            f"paradis_torch {what} on one device; {wide or 'compute.coordinator_address'} "
+            f"needs multi-GPU runs, which are not ported yet (ROADMAP.md, Queue 1 item 8)")
 
 
 class NaNLossError(RuntimeError):
@@ -80,7 +79,7 @@ class Trainer:
 
     def __init__(self, cfg, log_dir: str | None = None, device=None):
         self.cfg = cfg
-        _check_single_device(cfg)
+        check_single_device(cfg)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer on a CUDA device and none is available; "

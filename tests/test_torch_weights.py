@@ -109,8 +109,8 @@ def test_same_seed_same_weights():
 
 
 @pytest.mark.parametrize("override,match", [
-    ("compute.advection_impl=pallas", "advection_impl"),
-    ("compute.advection_impl=gather", "advection_impl"),
+    ("compute.advection_impl=dense", "advection_impl"),
+    ("compute.advection_impl=triton", "advection_impl"),
     ("compute.advection_impl=plain", "advection_impl"),
     ("compute.gradient_checkpointing=true compute.remat_policy=offload", "remat_policy"),
 ])
@@ -197,6 +197,23 @@ with tempfile.TemporaryDirectory() as d:
                       log_dir=str(Path(d) / "logs"), device="cpu")
     assert trainer.fit()["steps"] == 2
     assert (Path(d) / "logs" / "metrics.csv").is_file()
+    from paradis_torch.cli import forecast as forecast_cli
+    from paradis_torch.forecast.evaluate import evaluate_store
+    from paradis_torch.train.checkpoint import save_params
+    save_params(Path(d) / "params.pt", trainer.model)
+    toy = ["features.pressure_levels=[500,850,1000]", "model.latent_size=16",
+           "model.velocity_vectors=4", "model.num_layers=2", "model.bias_channels=2",
+           "model.bias_rank=4", "model.physblock.velocity_net.hidden_dim=8",
+           "model.physblock.reaction.hidden_dim=8", "model.physblock.output_proj.hidden_dim=8"]
+    stats = forecast_cli.main(["--checkpoint-path", str(Path(d) / "params.pt"),
+                               "--output-file", str(Path(d) / "fc.zarr"), "--root-dir",
+                               str(store), "--forecast-steps", "2", "--start-date",
+                               "2000-01-03", "--end-date", "2000-01-03", "--device", "cpu",
+                               *toy])
+    assert stats["steps"] == 2
+    scores = evaluate_store(str(Path(d) / "fc.zarr"), str(store), [("geopotential", 500)],
+                            [6], climatology=str(store / "climatology"), device="cpu")
+    assert len(scores) == 2
 
 import os
 os.environ["PARADIS_INTERP_CHUNK"] = "8"
@@ -221,7 +238,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     saves, restores and loads a checkpoint, imports the converter and its
     CLI, builds the native host library and a toy store with the port's own
     synthetic store and preprocessor, trains 2 steps through ``Trainer`` and
-    imports the training CLI, runs a rollout through the row-chunked path and
+    imports the training CLI, forecasts from its weights through the forecast
+    CLI and scores the store, runs a rollout through the row-chunked path and
     the weight generation, imports the microbenchmark, and has loaded nothing
     of JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c",
