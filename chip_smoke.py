@@ -119,7 +119,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    the raw and the preprocessed truth must give finite RMSEs at 24, 72 and
    120 h.  Forecast steps/s through the CLI beside the in-memory rollout's
    (device-only) rate, the write, copy and evaluate seconds, the store
-   build and preprocess seconds.
+   build and preprocess seconds.  ``[export]``: the serving artifact: at
+   5.625° ``cli.export`` at its default ``--device cuda`` turns
+   ``[forecast-io]``'s checkpoint into ``forward.pt2`` and the scanned
+   ``rollout.pt2`` (``torch.export``, the parameters an input) with
+   ``params.npz``, and ``paradis_torch.tools.bench_artifact --artifact``
+   loads it (``load_artifact``) and runs 40 steps through the artifact's
+   rollout, its forward a step at a time and the in-process rollout, in
+   alternating turns; at 1.40625° (``interp_band_rad=0.3``) the bench
+   exports the forward program alone and runs it a step at a time beside
+   the in-process rollout: #1 320 times a call of each way (8 a
+   ``forward.pt2`` call), #5 320, each artifact way within ``EXPORT_TOL``
+   of the largest output of the in-process rollout, the band plan in the
+   1.40625° graph; export and load seconds, file bytes and steps/s of each
+   way.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -235,6 +248,7 @@ HR_OVERRIDES = [f"compute.interp_band_rad={BAND_RAD}"]
 # recomputation of each physics layer in the backward
 HR_TRAIN_OVERRIDES = TRAIN_OVERRIDES + HR_OVERRIDES + ["compute.gradient_checkpointing=true"]
 HR_TRAIN_STEPS = 6         # train steps at 1.40625° (the first is the warm-up)
+HR_ROLLOUTS = 2            # timed 1.40625° rollouts a run (device-bound: they repeat to ~4%)
 # the chunked 1.40625° runs: no band (chunking yields to a band plan), and
 # the train steps with full recomputation of each physics layer
 HR_CHUNK_OVERRIDES = ["compute.interp_band_rad=0"]
@@ -332,7 +346,7 @@ SYNC_STEPS = 8                 # steps of the sync_every_n_steps=4 run
 LOOP_LR_STEPS = 10             # steps of the 5.625° loop
 LOOP_TURN_STEPS = 5            # steps a turn of the 5.625° step fed in turns (the first untimed)
 LOOP_MODES = ("loader", "cached", "capped")
-LOOP_ROUNDS = 6                # rounds of one turn a mode, each round's order rotated
+LOOP_ROUNDS = 3                # rounds of one turn a mode, each round's order rotated
 
 # forecast I/O ([forecast-io]): python -m paradis_torch.cli.forecast from a
 # store on disk, at each grid: the raw store's six-hourly times (n_time_inputs
@@ -348,6 +362,9 @@ FIO_LEADS = [24, 72, 120]      # hours scored by evaluate_store
 # BitRound(16) keeps 16 of float32's 23 mantissa bits: a stored value is
 # within half a step, 2^-17 of its magnitude, of what was written
 BITROUND_STEP = 2.0 ** -16
+# [export]: the loaded rollout's gap to the in-process one, as a share of the
+# largest |output| (the rollout tolerance of tests/test_export.py:213)
+EXPORT_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1319,7 +1336,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     marks.append(("setup", time.perf_counter()))
 
     times, counts, out = [], [], None
-    for _ in range(3):
+    for _ in range(HR_ROLLOUTS if grid == HR else 3):
         reset_counts()
         t0 = time.perf_counter()
         out = rollout(batch, d["n_common"])
@@ -1328,7 +1345,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
         counts.append(launch_counts())
     # the path's forward kernel once per layer and step
     expected = expected_launches(n_layers * STEPS if impl == "auto" else 0, 0, banded, chunk_rw)
-    median = sorted(times)[1]
+    median = float(np.median(times))
     marks.append(("rollouts", time.perf_counter()))
     ab_times, ab_ok = {"off": [], "on": []}, True
     for turn in (["off", "on", "on", "off"] * ab_pairs)[:2 * ab_pairs]:
@@ -2058,6 +2075,70 @@ def run_forecast_io(card: str, root: Path) -> dict:
                    and r["output_only_finite_after"] and launches == expected
                    and len(ds) == inits and stats["samples"] == inits
                    and stats["steps"] == STEPS * inits and r["evaluate_finite"])
+        res[key] = r
+        res["ok"] = res["ok"] and r["ok"]
+    return res
+
+
+def run_export(card: str, fio_root: Path) -> dict:
+    """``[export]``: the serving artifact on the card.  At 5.625°
+    ``python -m paradis_torch.cli.export`` (in a process of its own, at its
+    default ``--device cuda``) turns ``[forecast-io]``'s checkpoint of the
+    seeded fp32 flagship into an artifact (``forward.pt2``, the scanned
+    ``rollout.pt2``, ``params.npz``) for 40 steps on that phase's store;
+    ``paradis_torch.tools.bench_artifact --artifact`` loads it
+    (``load_artifact``) and runs three ways, 40 steps each, in alternating
+    turns: the artifact's rollout, its forward a step at a time, and
+    ``make_forecast_rollout`` in process with the artifact's weights.  At
+    1.40625° with ``compute.interp_band_rad`` the bench exports the seeded
+    flagship's forward program alone (its scanned rollout at full width
+    would add ~80 s of trace to the smoke; ``tests/test_torch_export_gpu.py``
+    runs a banded ``rollout.pt2``) and runs it a step at a time and in
+    process, each called once.  Gates: #1 launched 8 × 40 times by one call
+    of each way at 5.625° (8 a call of ``forward.pt2``), #5 8 × 40 at
+    1.40625°, and no other interpolation kernel; each artifact way within
+    ``EXPORT_TOL`` of the largest |output| of the in-process rollout; the
+    band plan in the 1.40625° graph and none in the 5.625° one."""
+    import math
+
+    from paradis_torch.tools import bench_artifact
+
+    res = {"ok": True}
+    art = fio_root / "artifact32"
+    t0 = time.perf_counter()
+    # in a process of its own, as a user runs it: traced in this one, after
+    # the earlier phases, the rollout took 97.7 s against 42.4 s alone
+    done = subprocess.run(
+        [sys.executable, "-m", "paradis_torch.cli.export", "--checkpoint-path",
+         str(fio_root / f"fio_params{NLAT}.pt"), "--output-dir", str(art),
+         f"dataset.root_dir={fio_root / f'fio_store{NLAT}'}", f"model.forecast_steps={STEPS}",
+         "forecast.output_frequency=1", *LOOP_DATES[:2]],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if done.returncode != 0 or f"serving artifact written: {art}" not in done.stdout:
+        raise SystemExit(f"cli.export failed ({done.returncode}): {done.stderr[-3000:]}")
+    for key, grid, argv, kernel in (
+            (f"{NLAT}x{NLON}", (NLAT, NLON), ["--artifact", str(art), "--repeats", "2"],
+             "interp_fwd"),
+            (f"{HR[0]}x{HR[1]}", HR,
+             ["--grid", f"{HR[0]},{HR[1]}", "--steps", str(STEPS), "--repeats", "0",
+              "--ways", "steploop,inprocess", "--override",
+              f"compute.interp_band_rad={BAND_RAD}"], "interp_band_fwd")):
+        t0 = time.perf_counter()
+        r = bench_artifact.main(argv)
+        r["seconds"] = time.perf_counter() - t0
+        if key == f"{NLAT}x{NLON}":
+            r["cli_export_s"] = cli_s
+            r["seconds"] += cli_s
+        want = {kernel: 8 * STEPS}
+        r["ok"] = (all(n == want for n in r["launches_per_call"].values())
+                   and all(gap <= EXPORT_TOL * r["max_abs_out"]
+                           for gap in r["max_abs_gap"].values())
+                   and math.isfinite(r["max_abs_out"])
+                   and r["grid"] == list(grid) and r["steps"] == STEPS
+                   and len(r["traced"]["interp_ops"]) == 1
+                   and (r["traced"]["interp_ops"][0]["band_plan"] is not None)
+                   == (kernel == "interp_band_fwd"))
         res[key] = r
         res["ok"] = res["ok"] and r["ok"]
     return res
@@ -2823,8 +2904,9 @@ def main() -> int:
 
     # forecast I/O: the forecast CLI writes a WB2 store from the card, scored
     fio_t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="paradis-fio-") as fio_dir:
-        fio = run_forecast_io(card, Path(fio_dir))
+    # kept to [export], which exports the 5.625° checkpoint on the 5.625° store
+    fio_dir = tempfile.TemporaryDirectory(prefix="paradis-fio-")
+    fio = run_forecast_io(card, Path(fio_dir.name))
     fio["seconds"] = time.perf_counter() - fio_t0
     log("[forecast-io] " + json.dumps(fio))
     if not fio["ok"]:
@@ -2844,6 +2926,25 @@ def main() -> int:
 
     phase_done("[forecast-io]")
 
+    # the serving export: torch.export programs loaded back, on the kernels
+    export = run_export(card, Path(fio_dir.name))
+    fio_dir.cleanup()
+    log("[export] " + json.dumps(export))
+    if not export["ok"]:
+        raise SystemExit(f"the serving artifact failed its checks: {export}")
+    for key, r in export.items():
+        if key == "ok":
+            continue
+        log(f"[export] {key} float32: export {r['export_seconds']} s"
+            + (f" (cli.export {r['cli_export_s']:.1f} s)" if "cli_export_s" in r else "")
+            + f", load "
+            f"{r['load_seconds']:.1f} s, bytes {r['file_bytes']}; steps/s {r['steps_per_s']} "
+            f"({STEPS} steps, batch 1); gaps {r['max_abs_gap']} of max |out| "
+            f"{r['max_abs_out']:.4g}; torch {r['torch_version']} on {card}")
+    torch.cuda.empty_cache()
+
+    phase_done("[export]")
+
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
                         for dtype_name in ("bfloat16", "float32")]
@@ -2860,7 +2961,7 @@ def main() -> int:
 
     # the serving and training paths through the row-chunked kernels
     chunk_runs, chunk_trains = {}, {}
-    for grid, overrides, rw, ab_pairs in (((NLAT, NLON), (), CHUNK_RW, 3),
+    for grid, overrides, rw, ab_pairs in (((NLAT, NLON), (), CHUNK_RW, 2),
                                           (HR, HR_CHUNK_OVERRIDES, HR_CHUNK_RW, 0)):
         res = run_forecast("float32", card, grid, overrides, chunk_rw=rw, ab_pairs=ab_pairs)
         log("[forecast-chunk] " + json.dumps(res))
@@ -2977,6 +3078,16 @@ def main() -> int:
             k["cli_forecast_launches"] = fio[f"{NLAT}x{NLON}"]["launches"][0]
         if k["name"] == "interp_band_fwd[bicubic,float32]":
             k["cli_forecast_launches"] = fio[f"{HR[0]}x{HR[1]}"]["launches"][2]
+    # and the serving artifact's: one rollout.pt2 call, one forward.pt2 call
+    ex_lr, ex_hr = export[f"{NLAT}x{NLON}"], export[f"{HR[0]}x{HR[1]}"]
+    for k in kernels:
+        if k["name"] == "interp_fwd[bicubic,float32]":
+            k["artifact_rollout_launches"] = ex_lr["launches_per_call"]["rollout"]["interp_fwd"]
+            k["artifact_forward_launches_per_call"] = (
+                ex_lr["launches_per_call"]["steploop"]["interp_fwd"] // STEPS)
+        if k["name"] == "interp_band_fwd[bicubic,float32]":
+            k["artifact_forward_launches_per_call"] = (
+                ex_hr["launches_per_call"]["steploop"]["interp_band_fwd"] // STEPS)
     for c in rollout_checks:
         kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,

@@ -2,9 +2,10 @@
 
 Port of ``paradis_tpu/forecast/rollout.py``.  ``make_forecast_rollout``: the
 model steps once per forcing time step, the lagged input stack shifts after
-each step (``autoregress_next_input``), and every ``output_frequency``-th
-output is kept; it runs eagerly under ``torch.inference_mode()`` on the
-model's device.  ``run_forecast``: for each batch of init times, one rollout
+each step (``forecast_step``, which the exported scanned rollout of
+``forecast/export.py`` shares), and every ``output_frequency``-th output is
+kept; it runs eagerly under ``torch.inference_mode()`` on the model's
+device.  ``run_forecast``: for each batch of init times, one rollout
 on the device, one device → host copy of its stored steps, and region writes
 of ``forecast.write_every_n`` stored steps at a time to the WB2-layout store
 (reference ``predict_step``, ``trainer.py:731-815``).
@@ -32,6 +33,16 @@ def autoregress_next_input(dyn_input: torch.Tensor, output: torch.Tensor,
     return torch.cat([dyn_input[..., num_common:lag], common], dim=-1)
 
 
+def forecast_step(model, dyn: torch.Tensor, forcing_t: torch.Tensor, constants: torch.Tensor,
+                  num_common: int, n_time_inputs: int):
+    """One autoregressive step: the model on dyn, the forcing at t and the
+    constants (broadcast to the batch), then the lag shift.  Returns
+    ``(next dyn, output)``.  The body of both the eager rollout below and the
+    scanned rollout of ``forecast/export.py``, so the two cannot drift."""
+    out = model(torch.cat([dyn, forcing_t, constants], dim=-1))
+    return autoregress_next_input(dyn, out, num_common, n_time_inputs), out
+
+
 def make_forecast_rollout(model, cfg):
     """Build ``rollout(batch, num_common_features) -> stored [B, T_stored, H, W, C]``.
 
@@ -56,8 +67,8 @@ def make_forecast_rollout(model, cfg):
             constants = batch["constants"].expand(B, *batch["constants"].shape[1:])
             stored = []
             for t in range(forcings.shape[1]):
-                out = model(torch.cat([dyn, forcings[:, t], constants], dim=-1))
-                dyn = autoregress_next_input(dyn, out, num_common_features, n_time)
+                dyn, out = forecast_step(model, dyn, forcings[:, t], constants,
+                                         num_common_features, n_time)
                 if t % out_freq == 0:
                     stored.append(out)
             return torch.stack(stored, dim=1).float()

@@ -174,6 +174,7 @@ class Paradis(nn.Module):
             check_remat_policy(remat_policy)
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
+        self.input_dim, self.output_dim = input_dim, output_dim
         self.n_static = n_static
         self.dtype = dtype
         self.gradient_checkpointing = gradient_checkpointing

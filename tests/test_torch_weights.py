@@ -136,6 +136,12 @@ def test_entry_points_raise_without_a_card_and_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         _small(device=None)
     assert resolve_device("cpu") == torch.device("cpu")
+    from paradis_torch.cli import export as export_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_cli.main(["--checkpoint-path", "params.pt", "--output-dir", "never",
+                         "--device", "cuda"])
+    assert not (ROOT / "never").exists()
 
 
 _ISOLATION = r"""
@@ -225,6 +231,20 @@ assert interp_chunk.chunk_rows(10, None) == 8
 y = torch.rand(1, 8, 16, 4) * 12
 assert torch.isfinite(interp_gen.bwd_gen(y, y, 12, 20)).all()
 assert "ns_update" in bench_interp.VARIANTS
+from paradis_torch.forecast.export import load_artifact, save_artifact
+from paradis_torch.tools import bench_artifact
+cfg.model.forecast_steps = 2
+cfg.features.input.forcings = cfg.features.input.forcings[:1]  # the batch's 2 channels
+with tempfile.TemporaryDirectory() as d:
+    art = save_artifact(Path(d) / "art", model, cfg, batch_size=1, nlat=8, nlon=16,
+                        input_dim=20, output_dim=12, n_common=4)
+    serving = load_artifact(art)
+    x = torch.cat([batch["input"], batch["forcings"][:, 0], batch["constants"]], dim=-1)
+    with torch.no_grad():
+        assert torch.equal(serving(x), model(x))
+    assert serving.rollout(batch["input"], batch["forcings"], batch["constants"]).shape == (
+        1, 2, 8, 16, 12)
+assert "rollout" in bench_artifact.WAYS
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
 assert not bad, bad
@@ -240,8 +260,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     synthetic store and preprocessor, trains 2 steps through ``Trainer`` and
     imports the training CLI, forecasts from its weights through the forecast
     CLI and scores the store, runs a rollout through the row-chunked path and
-    the weight generation, imports the microbenchmark, and has loaded nothing
-    of JAX, flax or paradis_tpu."""
+    the weight generation, imports the microbenchmark, exports a serving
+    artifact, loads it and runs its forward and rollout, imports the artifact
+    benchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c",
                           _ISOLATION.format(root=str(ROOT), tests=str(ROOT / "tests"))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -262,7 +283,8 @@ def test_no_jax_import_in_the_port_or_the_smoke_script():
                 "data/forcings.py", "data/synthetic.py", "data/preprocess.py",
                 "data/dataset.py", "data/pipeline.py", "data/datamodule.py",
                 "utils/logging.py", "utils/system.py", "train/loop.py",
-                "cli/preprocess.py", "cli/train.py"):
+                "cli/preprocess.py", "cli/train.py", "forecast/export.py", "cli/export.py",
+                "tools/bench_artifact.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
