@@ -93,7 +93,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    re-interpolated) that forecasts one finite step through #1.
    ``[data]``: the native host library (required), synthetic WB2-shaped raw
    stores at 1.40625° and 5.625° (13 levels, 20 six-hourly times,
-   Blosc-LZ4) built and preprocessed with the port's own pipeline, the
+   Blosc-LZ4) built and preprocessed with the port's own pipeline (in the
+   process that prepares ``[export]``, while the 1.40625° phases run), the
    median time to assemble one 1.40625° sample, one batch to the card
    pinned and pageable, and the loader's batch on the card bitwise against
    the same batch as numpy.  ``[train-loop]``: ``python -m
@@ -120,7 +121,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    120 h.  Forecast steps/s through the CLI beside the in-memory rollout's
    (device-only) rate, the write, copy and evaluate seconds, the store
    build and preprocess seconds.  ``[export]``: the serving artifact: at
-   5.625° ``cli.export`` at its default ``--device cuda`` turns
+   5.625° ``cli.export`` at its default ``--device cuda`` (in a process
+   of its own, started with [forecast-io]'s stores and weights before
+   ``[train-remat]``, whose 1.40625° phases keep the card busy) turns
    ``[forecast-io]``'s checkpoint into ``forward.pt2`` and the scanned
    ``rollout.pt2`` (``torch.export``, the parameters an input) with
    ``params.npz``, and ``paradis_torch.tools.bench_artifact --artifact``
@@ -129,10 +132,31 @@ Phases, each of which makes the script exit non-zero when it fails:
    alternating turns; at 1.40625° (``interp_band_rad=0.3``) the bench
    exports the forward program alone and runs it a step at a time beside
    the in-process rollout: #1 320 times a call of each way (8 a
-   ``forward.pt2`` call), #5 320, each artifact way within ``EXPORT_TOL``
+   ``forward.pt2`` call), #5 80 (10 steps), each artifact way within ``EXPORT_TOL``
    of the largest output of the in-process rollout, the band plan in the
    1.40625° graph; export and load seconds, file bytes and steps/s of each
-   way.
+   way.  ``[bench-model]``: ``paradis_torch.tools.bench_model`` at its
+   defaults (the bf16 flagship at 5.625°, batch 1; ``xla`` and ``pallas``,
+   ``fwd`` and ``bwd``; chain slopes, the impls in turns): the four ms and
+   the first calls' seconds; #1 launched 8 times a ``pallas`` ``fwd`` call,
+   #1 and #2 8 times each a ``pallas`` ``bwd`` call, neither in the ``xla``
+   rows.  ``[multi-gpu]``: each run in its own processes through ``python
+   -m torch.distributed.run`` (this script's ``--worker`` mode: the entry
+   point's ``main``, then the rank's launch counts), on ``[data]``'s
+   5.625° store, bf16, full width and depth: (a) ``cli.train`` on 2 ranks
+   sharing the card over gloo, batch 1 a rank, against (b) 1 rank over
+   NCCL (its initialisation and all-reduce on the card) with batch 2, the
+   same seed, ``MG_STEPS`` steps: each step's loss within ``MG_LOSS_RTOL``,
+   only rank 0's ``metrics.csv`` and checkpoints (the files of a one-process
+   run, ``MG_RUN_FILES``), #1 and #2 8 times a step
+   on each rank; (c) ``compute.fsdp=true`` on 2 gloo ranks, 2 training
+   samples (a resumed run's fresh epoch order then changes nothing):
+   ``2 × MG_FSDP_K`` steps saving a sharded checkpoint after ``MG_FSDP_K``,
+   and a resume from it for ``MG_FSDP_K`` more, the losses within
+   ``MG_LOSS_RTOL`` of each other; (d)
+   ``cli.forecast --num-devices 2`` on 2 gloo ranks with ``[forecast-io]``'s
+   5.625° store and weights, beside (c)'s resumed run: every array equal to
+   that phase's one-process store.  Seconds and samples/s of each run.
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -191,6 +215,7 @@ the repository beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
 import json
@@ -237,7 +262,7 @@ MMT_REPLACES = "scripts/bench_interp.py:176"
 BWD_MM_REPLACES = "scripts/bench_interp.py:248"
 CHUNK_RW = 8               # PARADIS_INTERP_CHUNK of the 5.625° chunked runs
 HR_CHUNK_RW = 32           # and of the 1.40625° ones
-TRAIN_STEPS = 10           # train steps on one batch (the first is the warm-up)
+TRAIN_STEPS = 6            # train steps on one batch (the first is the warm-up)
 TRAIN_PROFILE_STEPS = 2    # train steps traced by torch.profiler
 # WSD with a short warmup, so the few steps run at the configured rate
 TRAIN_OVERRIDES = ["training.scheduler.wsd.warmup=3"]
@@ -247,8 +272,9 @@ HR_OVERRIDES = [f"compute.interp_band_rad={BAND_RAD}"]
 # the 1.40625° train configuration: banded interpolation and full
 # recomputation of each physics layer in the backward
 HR_TRAIN_OVERRIDES = TRAIN_OVERRIDES + HR_OVERRIDES + ["compute.gradient_checkpointing=true"]
-HR_TRAIN_STEPS = 6         # train steps at 1.40625° (the first is the warm-up)
-HR_ROLLOUTS = 2            # timed 1.40625° rollouts a run (device-bound: they repeat to ~4%)
+HR_TRAIN_STEPS = 4         # train steps at 1.40625° (the first is the warm-up)
+HR_ROLLOUTS = 1            # timed 1.40625° rollouts a run (device-bound: they repeat to ~4%)
+LR_ROLLOUTS = 1            # timed 5.625° rollouts a run
 # the chunked 1.40625° runs: no band (chunking yields to a band plan), and
 # the train steps with full recomputation of each physics layer
 HR_CHUNK_OVERRIDES = ["compute.interp_band_rad=0"]
@@ -346,7 +372,7 @@ SYNC_STEPS = 8                 # steps of the sync_every_n_steps=4 run
 LOOP_LR_STEPS = 10             # steps of the 5.625° loop
 LOOP_TURN_STEPS = 5            # steps a turn of the 5.625° step fed in turns (the first untimed)
 LOOP_MODES = ("loader", "cached", "capped")
-LOOP_ROUNDS = 3                # rounds of one turn a mode, each round's order rotated
+LOOP_ROUNDS = 2                # rounds of one turn a mode, each round's order rotated
 
 # forecast I/O ([forecast-io]): python -m paradis_torch.cli.forecast from a
 # store on disk, at each grid: the raw store's six-hourly times (n_time_inputs
@@ -365,6 +391,31 @@ BITROUND_STEP = 2.0 ** -16
 # [export]: the loaded rollout's gap to the in-process one, as a share of the
 # largest |output| (the rollout tolerance of tests/test_export.py:213)
 EXPORT_TOL = 1e-5
+# [export]'s 1.40625° forward program: steps of its step loop and in-process rollout
+EXPORT_HR_STEPS = 10
+# [multi-gpu]: train steps of the data-parallel runs, and the FSDP run's
+# steps before its checkpoint (as many after the resume)
+MG_STEPS = 4
+MG_FSDP_K = 2
+# each step's logged loss, relative: 2 gloo ranks (batch 1 each) against 1
+# process (batch 2), FSDP against replicated, a resumed run against the
+# uninterrupted one.  Measured (H100 80GB HBM3, 700.00 W; 4 steps): fp32
+# within 1.5e-6 (float32 sums in another order), bf16 within 1.2e-5, FSDP
+# 2.1e-5; and one bf16 process run twice differs by 8.6e-6 at step 4 (the
+# backward's float atomics), so the gaps are that noise; the limit is 5x
+# the largest
+MG_LOSS_RTOL = 1e-4
+# the file [export]'s preparation writes when [forecast-io]'s store and weights
+# of a grid are ready (the grid's latitudes in the name)
+FIO_READY = "fio_ready{}.json"
+DATA_READY = "data_ready.json"  # and when [data]'s are
+# the files of a one-epoch cli.train run (the JAX checkpoint layout)
+MG_RUN_FILES = ["checkpoints/best/best/params.pt", "checkpoints/best/best/state.pt",
+                "checkpoints/best/metric.json", "checkpoints/epochs/0001/params.pt",
+                "checkpoints/epochs/0001/state.pt", "checkpoints/last.json", "config.yaml",
+                "git_info.json", "metrics.csv"]
+# the microbenchmark's repeats here (its default is 5)
+BENCH_INTERP_REPEATS = 2
 
 
 def log(msg: str) -> None:
@@ -1336,7 +1387,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     marks.append(("setup", time.perf_counter()))
 
     times, counts, out = [], [], None
-    for _ in range(HR_ROLLOUTS if grid == HR else 3):
+    for _ in range(HR_ROLLOUTS if grid == HR else LR_ROLLOUTS):
         reset_counts()
         t0 = time.perf_counter()
         out = rollout(batch, d["n_common"])
@@ -1840,32 +1891,18 @@ def dir_bytes(root: Path) -> int:
     return sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
 
 
-def run_data(card: str, root: Path) -> dict:
-    """The port's data pipeline on this host and the card: the native host
-    library (required), a synthetic WB2-shaped raw store at 1.40625° and at
-    5.625° (the 13 levels of ``configs/default.yaml``, ``DATA_TIMES``
-    six-hourly times, Blosc-LZ4 as a WeatherBench-2 download) built and
-    preprocessed with the port's ``synthetic`` and ``preprocess``, seconds
-    and bytes on disk; the median ms to assemble one 1.40625° sample and its
-    bytes; the host → device copy of one batch, pinned and ``non_blocking``
-    against pageable; and the loader's first batch on the card bitwise
-    against the same batch assembled as numpy."""
-    import numpy as np
-    import torch
-
+def data_stores(root: Path) -> dict:
+    """[data]'s synthetic WB2-shaped raw stores at 1.40625° and at 5.625°
+    (the 13 levels of ``configs/default.yaml``, ``DATA_TIMES`` six-hourly
+    times, Blosc-LZ4 as a WeatherBench-2 download), built and preprocessed
+    with the port's ``synthetic`` and ``preprocess``: paths, seconds and
+    bytes on disk."""
     from paradis_torch.config import load_config
-    from paradis_torch.data import native
-    from paradis_torch.data.dataset import ERA5Dataset
-    from paradis_torch.data.pipeline import BatchLoader, collate
     from paradis_torch.data.preprocess import preprocess
     from paradis_torch.data.synthetic import build_raw_store
 
-    t0 = time.perf_counter()
-    native.require()
-    res = {"card": card, "native_library": native._lib_path().name,
-           "native_build_s": time.perf_counter() - t0, "stores": {}}
-    cfg = load_config()
-    levels = tuple(int(v) for v in cfg.features.pressure_levels)
+    levels = tuple(int(v) for v in load_config().features.pressure_levels)
+    stores = {}
     for grid in (HR, (NLAT, NLON)):
         raw, store = root / f"raw{grid[0]}", root / f"store{grid[0]}"
         t0 = time.perf_counter()
@@ -1875,9 +1912,49 @@ def run_data(card: str, root: Path) -> dict:
         t1 = time.perf_counter()
         preprocess(str(raw), str(store))
         t2 = time.perf_counter()
-        res["stores"][f"{grid[0]}x{grid[1]}"] = {
+        stores[f"{grid[0]}x{grid[1]}"] = {
             "path": str(store), "build_s": t1 - t0, "preprocess_s": t2 - t1,
             "raw_bytes": dir_bytes(raw), "store_bytes": dir_bytes(store)}
+    return stores
+
+
+def wait_ready(ready: Path, proc, what: str) -> dict:
+    """The record ``prepare_export`` writes at ``ready``, waiting for it
+    (the phase fails if that process ends or stalls first)."""
+    t0 = time.perf_counter()
+    while not ready.is_file():
+        if proc.poll() is not None or time.perf_counter() - t0 > 600:
+            raise SystemExit(f"[export]'s preparation ended or stalled ({proc.poll()}) "
+                             f"before {what}: see {ready.parent}")
+        time.sleep(1)
+    return json.loads(ready.read_text())
+
+
+def write_ready(ready: Path, record: dict) -> None:
+    ready.with_suffix(".tmp").write_text(json.dumps(record))
+    ready.with_suffix(".tmp").rename(ready)
+
+
+def run_data(card: str, root: Path, prepared) -> dict:
+    """The port's data pipeline on this host and the card: the native host
+    library (required), [data]'s stores (``data_stores``, made by
+    ``prepared``, the ``prepare_export`` process), the median ms to assemble
+    one 1.40625° sample and its bytes; the host → device copy of one batch,
+    pinned and ``non_blocking`` against pageable; and the loader's first
+    batch on the card bitwise against the same batch assembled as numpy."""
+    import numpy as np
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data import native
+    from paradis_torch.data.dataset import ERA5Dataset
+    from paradis_torch.data.pipeline import BatchLoader, collate
+
+    t0 = time.perf_counter()
+    native.require()
+    res = {"card": card, "native_library": native._lib_path().name,
+           "native_build_s": time.perf_counter() - t0,
+           "stores": wait_ready(root / DATA_READY, prepared, "[data]'s stores")}
 
     cfg = load_config(overrides=[f"dataset.root_dir={root / f'store{HR[0]}'}"])
     ds = ERA5Dataset(cfg.dataset.root_dir, "2000-01-01", "2000-01-03",
@@ -1932,7 +2009,75 @@ def run_data(card: str, root: Path) -> dict:
     return res
 
 
-def run_forecast_io(card: str, root: Path) -> dict:
+def fio_inputs(root: Path, grid) -> dict:
+    """[forecast-io]'s synthetic WB2-shaped raw store of ``grid``, its
+    preprocessed store and the seeded fp32 flagship's weights
+    (``save_params``; drawn on the CPU, the same bits a model built on the
+    card has), with the seconds and bytes."""
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.data.dataset import ERA5Dataset
+    from paradis_torch.data.preprocess import preprocess
+    from paradis_torch.data.synthetic import build_raw_store
+    from paradis_torch.model import Paradis
+    from paradis_torch.train.checkpoint import save_params
+
+    n_times, end_date, _, overrides = FIO_GRIDS[grid]
+    raw, store = root / f"fio_raw{grid[0]}", root / f"fio_store{grid[0]}"
+    t0 = time.perf_counter()
+    build_raw_store(str(raw), nlat=grid[0], nlon=grid[1], n_times=n_times,
+                    levels=tuple(int(v) for v in load_config().features.pressure_levels),
+                    start="2000-01-01T00:00:00", seed=0, compressor=WB2_BLOSC,
+                    wb2_layout=True)
+    t1 = time.perf_counter()
+    preprocess(str(raw), str(store))
+    t2 = time.perf_counter()
+    cfg = load_config(overrides=[f"dataset.root_dir={store}", *overrides])
+    cfg.forecast.enable = True
+    cfg.model.forecast_steps = STEPS
+    cfg.compute.use_amp = False
+    ds = ERA5Dataset(str(store), FIO_START, end_date, forecast_steps=STEPS, cfg=cfg,
+                     time_interval=FIO_INTERVAL, prediction_stage=True)
+    model = Paradis.from_config(cfg, input_dim=ds.num_in_features,
+                                output_dim=ds.num_out_features, lat_deg=ds.lat,
+                                lon_deg=ds.lon, dtype=torch.float32, device="cpu")
+    save_params(root / f"fio_params{grid[0]}.pt", model)
+    return {"grid": list(grid), "raw_times": n_times, "build_s": t1 - t0,
+            "preprocess_s": t2 - t1, "raw_bytes": dir_bytes(raw),
+            "store_bytes": dir_bytes(store)}
+
+
+def prepare_export(root: Path, data_root: Path) -> int:
+    """``--worker export ROOT DATA_ROOT``: host work of the later phases made
+    ahead, in a process of its own while the smoke's 1.40625° phases
+    (device-bound) run: [data]'s stores (``data_stores``, then the
+    ``DATA_READY`` file), [forecast-io]'s stores and weights at both grids
+    (``fio_inputs``; after each grid its ``FIO_READY`` file), and ``python -m
+    paradis_torch.cli.export`` at its
+    default ``--device cuda`` on them into ``ROOT/artifact32`` (host work:
+    traced in the smoke's own process, after the earlier phases, the
+    rollout took 4.3× as long); its seconds and output into
+    ``ROOT/export_prep.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    write_ready(data_root / DATA_READY, data_stores(data_root))
+    for grid in ((NLAT, NLON), HR):
+        write_ready(root / FIO_READY.format(grid[0]), fio_inputs(root, grid))
+    art = root / "artifact32"
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "paradis_torch.cli.export", "--checkpoint-path",
+         str(root / f"fio_params{NLAT}.pt"), "--output-dir", str(art),
+         f"dataset.root_dir={root / f'fio_store{NLAT}'}", f"model.forecast_steps={STEPS}",
+         "forecast.output_frequency=1", *LOOP_DATES[:2]],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
+    (root / "export_prep.json").write_text(json.dumps(
+        {"cli_export_s": time.perf_counter() - t0, "returncode": done.returncode,
+         "stdout": done.stdout[-3000:], "stderr": done.stderr[-3000:]}))
+    return 0
+
+
+def run_forecast_io(card: str, root: Path, prepared) -> dict:
     """``python -m paradis_torch.cli.forecast`` (its ``main``, in process) on
     the card at both grids from synthetic WB2-shaped stores built and
     preprocessed here, with the seeded flagship's weights saved by
@@ -1945,7 +2090,9 @@ def run_forecast_io(card: str, root: Path) -> dict:
     forecast value finite; the dewpoint depression ≤ 30; output-only
     channels NaN at td 0 and finite after; exact launch counts; finite
     ``evaluate_store`` RMSEs at ``FIO_LEADS`` against the raw store
-    (``WB2TruthReader``) and the preprocessed one (``TruthReader``)."""
+    (``WB2TruthReader``) and the preprocessed one (``TruthReader``).
+    The stores and weights come from ``prepared``, the ``prepare_export``
+    process."""
     import numpy as np
     import torch
 
@@ -1954,13 +2101,10 @@ def run_forecast_io(card: str, root: Path) -> dict:
     from paradis_torch.data import native, zarrlite
     from paradis_torch.data.dataset import ERA5Dataset
     from paradis_torch.data.pipeline import collate_prediction
-    from paradis_torch.data.preprocess import preprocess
-    from paradis_torch.data.synthetic import build_raw_store
     from paradis_torch.forecast import make_forecast_rollout
     from paradis_torch.forecast.evaluate import evaluate_store
     from paradis_torch.forecast.writer import _renamed_vars, chunk_codecs
     from paradis_torch.model import Paradis
-    from paradis_torch.train.checkpoint import save_params
     from paradis_torch.utils.postprocessing import (convert_cartesian_to_spherical_winds,
                                                     denormalize_forecast, feature_indices)
     from paradis_torch.utils.thermo import dewpoint_depression
@@ -1970,19 +2114,11 @@ def run_forecast_io(card: str, root: Path) -> dict:
     for grid, (n_times, end_date, inits, overrides) in FIO_GRIDS.items():
         key = f"{grid[0]}x{grid[1]}"
         raw, store = root / f"fio_raw{grid[0]}", root / f"fio_store{grid[0]}"
-        t0 = time.perf_counter()
-        build_raw_store(str(raw), nlat=grid[0], nlon=grid[1], n_times=n_times,
-                        levels=tuple(int(v) for v in load_config().features.pressure_levels),
-                        start="2000-01-01T00:00:00", seed=0, compressor=WB2_BLOSC,
-                        wb2_layout=True)
-        t1 = time.perf_counter()
-        preprocess(str(raw), str(store))
-        t2 = time.perf_counter()
-        r = {"grid": list(grid), "raw_times": n_times, "build_s": t1 - t0,
-             "preprocess_s": t2 - t1, "raw_bytes": dir_bytes(raw),
-             "store_bytes": dir_bytes(store)}
+        # the stores and weights come from [export]'s preparation, started in
+        # a process of its own before [train-remat]
+        r = wait_ready(root / FIO_READY.format(grid[0]), prepared, f"the {key} store")
 
-        # the configuration the CLI builds, the seeded flagship's weights saved
+        # the configuration the CLI builds
         args = [f"dataset.root_dir={store}", *overrides]
         cfg = load_config(overrides=args)
         cfg.forecast.enable = True
@@ -1994,7 +2130,10 @@ def run_forecast_io(card: str, root: Path) -> dict:
                                     output_dim=ds.num_out_features, lat_deg=ds.lat,
                                     lon_deg=ds.lon, dtype=torch.float32, device="cuda")
         params = root / f"fio_params{grid[0]}.pt"
-        save_params(params, model)
+        # the weights on disk are this model's (seeded, drawn on the CPU)
+        saved = torch.load(params, weights_only=True)["params"]
+        r["params_as_model"] = all(torch.equal(saved[n], p.detach().cpu())
+                                   for n, p in model.named_parameters())
 
         # the same batches rolled out in memory: the reference, and the device rate
         rollout = make_forecast_rollout(model, cfg)
@@ -2074,17 +2213,19 @@ def run_forecast_io(card: str, root: Path) -> dict:
                    and r["dewpoint_max"] <= 30.0 and r["output_only_nan_at_td0"]
                    and r["output_only_finite_after"] and launches == expected
                    and len(ds) == inits and stats["samples"] == inits
-                   and stats["steps"] == STEPS * inits and r["evaluate_finite"])
+                   and stats["steps"] == STEPS * inits and r["evaluate_finite"]
+                   and r["params_as_model"])
         res[key] = r
         res["ok"] = res["ok"] and r["ok"]
     return res
 
 
-def run_export(card: str, fio_root: Path) -> dict:
+def run_export(card: str, fio_root: Path, prepared) -> dict:
     """``[export]``: the serving artifact on the card.  At 5.625°
-    ``python -m paradis_torch.cli.export`` (in a process of its own, at its
-    default ``--device cuda``) turns ``[forecast-io]``'s checkpoint of the
-    seeded fp32 flagship into an artifact (``forward.pt2``, the scanned
+    ``python -m paradis_torch.cli.export`` (at its default ``--device
+    cuda``, in the process ``prepare_export`` started before
+    ``[train-remat]``) turns ``[forecast-io]``'s checkpoint of the seeded
+    fp32 flagship into an artifact (``forward.pt2``, the scanned
     ``rollout.pt2``, ``params.npz``) for 40 steps on that phase's store;
     ``paradis_torch.tools.bench_artifact --artifact`` loads it
     (``load_artifact``) and runs three ways, 40 steps each, in alternating
@@ -2094,9 +2235,10 @@ def run_export(card: str, fio_root: Path) -> dict:
     flagship's forward program alone (its scanned rollout at full width
     would add ~80 s of trace to the smoke; ``tests/test_torch_export_gpu.py``
     runs a banded ``rollout.pt2``) and runs it a step at a time and in
-    process, each called once.  Gates: #1 launched 8 × 40 times by one call
-    of each way at 5.625° (8 a call of ``forward.pt2``), #5 8 × 40 at
-    1.40625°, and no other interpolation kernel; each artifact way within
+    process, ``EXPORT_HR_STEPS`` steps, each called once.  Gates: #1
+    launched 8 × 40 times by one call of each way at 5.625° (8 a call of
+    ``forward.pt2``), #5 8 × ``EXPORT_HR_STEPS`` at 1.40625°, and no other
+    interpolation kernel; each artifact way within
     ``EXPORT_TOL`` of the largest |output| of the in-process rollout; the
     band plan in the 1.40625° graph and none in the 5.625° one."""
     import math
@@ -2106,22 +2248,21 @@ def run_export(card: str, fio_root: Path) -> dict:
     res = {"ok": True}
     art = fio_root / "artifact32"
     t0 = time.perf_counter()
-    # in a process of its own, as a user runs it: traced in this one, after
-    # the earlier phases, the rollout took 97.7 s against 42.4 s alone
-    done = subprocess.run(
-        [sys.executable, "-m", "paradis_torch.cli.export", "--checkpoint-path",
-         str(fio_root / f"fio_params{NLAT}.pt"), "--output-dir", str(art),
-         f"dataset.root_dir={fio_root / f'fio_store{NLAT}'}", f"model.forecast_steps={STEPS}",
-         "forecast.output_frequency=1", *LOOP_DATES[:2]],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    if done.returncode != 0 or f"serving artifact written: {art}" not in done.stdout:
-        raise SystemExit(f"cli.export failed ({done.returncode}): {done.stderr[-3000:]}")
-    for key, grid, argv, kernel in (
-            (f"{NLAT}x{NLON}", (NLAT, NLON), ["--artifact", str(art), "--repeats", "2"],
-             "interp_fwd"),
-            (f"{HR[0]}x{HR[1]}", HR,
-             ["--grid", f"{HR[0]},{HR[1]}", "--steps", str(STEPS), "--repeats", "0",
+    # cli.export ran in its own process, started before [train-remat]
+    # (prepare_export); what is left of it is the wait
+    prep_rc = prepared.wait(timeout=900)
+    res["export_wait_s"] = time.perf_counter() - t0
+    done = json.loads((fio_root / "export_prep.json").read_text())
+    cli_s = done["cli_export_s"]
+    if (prep_rc != 0 or done["returncode"] != 0
+            or f"serving artifact written: {art}" not in done["stdout"]):
+        raise SystemExit(f"cli.export failed ({prep_rc}, {done['returncode']}): "
+                         f"{done['stderr']}")
+    for key, grid, steps, argv, kernel in (
+            (f"{NLAT}x{NLON}", (NLAT, NLON), STEPS,
+             ["--artifact", str(art), "--repeats", "1"], "interp_fwd"),
+            (f"{HR[0]}x{HR[1]}", HR, EXPORT_HR_STEPS,
+             ["--grid", f"{HR[0]},{HR[1]}", "--steps", str(EXPORT_HR_STEPS), "--repeats", "0",
               "--ways", "steploop,inprocess", "--override",
               f"compute.interp_band_rad={BAND_RAD}"], "interp_band_fwd")):
         t0 = time.perf_counter()
@@ -2129,13 +2270,12 @@ def run_export(card: str, fio_root: Path) -> dict:
         r["seconds"] = time.perf_counter() - t0
         if key == f"{NLAT}x{NLON}":
             r["cli_export_s"] = cli_s
-            r["seconds"] += cli_s
-        want = {kernel: 8 * STEPS}
+        want = {kernel: 8 * steps}
         r["ok"] = (all(n == want for n in r["launches_per_call"].values())
                    and all(gap <= EXPORT_TOL * r["max_abs_out"]
                            for gap in r["max_abs_gap"].values())
                    and math.isfinite(r["max_abs_out"])
-                   and r["grid"] == list(grid) and r["steps"] == STEPS
+                   and r["grid"] == list(grid) and r["steps"] == steps
                    and len(r["traced"]["interp_ops"]) == 1
                    and (r["traced"]["interp_ops"][0]["band_plan"] is not None)
                    == (kernel == "interp_band_fwd"))
@@ -2547,6 +2687,210 @@ def run_train_loop(card: str, root: Path, stores: dict, device_rates: dict) -> d
             "ok": hr["ok"] and hr["resume"]["ok"] and hr["sync4"]["ok"] and lr["ok"]}
 
 
+def run_bench_model(card: str) -> dict:
+    """``[bench-model]``: ``paradis_torch.tools.bench_model`` at its defaults,
+    in this process (the kernels already built).  Gates: every row's ms
+    positive, #1 8 times a ``pallas`` ``fwd`` call, #1 and #2 8 times each a
+    ``pallas`` ``bwd`` call, neither in an ``xla`` row."""
+    from paradis_torch.tools import bench_model
+
+    res = bench_model.main([])
+    layers = 8
+    want = {"xla_fwd": {"interp_fwd": 0, "interp_bwd": 0},
+            "xla_bwd": {"interp_fwd": 0, "interp_bwd": 0},
+            "pallas_fwd": {"interp_fwd": layers, "interp_bwd": 0},
+            "pallas_bwd": {"interp_fwd": layers, "interp_bwd": layers}}
+    res["ok"] = (all(res[k] > 0 for k in want)
+                 and {k: res["rows"][k]["launches_per_call"] for k in want} == want
+                 and res["grid"] == [NLAT, NLON])
+    return res
+
+
+def rank_worker(argv: list[str]) -> int:
+    """``--worker {train,forecast} OUT ARGS...``: one rank of a run that
+    ``torch.distributed.run`` started: the entry point's ``main(ARGS)``, then
+    the rank's launch counts and the entry point's result into
+    ``OUT.rank<RANK>.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    kind, out, args = argv[0], Path(argv[1]), argv[2:]
+    if kind == "train":
+        from paradis_torch.cli import train as cli
+    else:
+        from paradis_torch.cli import forecast as cli
+    t0 = time.perf_counter()
+    result = cli.main(args)
+    rank = int(os.environ.get("RANK", "0"))
+    out.with_name(f"{out.name}.rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+         "result": result}, default=float))
+    return 0
+
+
+def torchrun(n: int, kind: str, out: Path, args: list[str], timeout: int = 300):
+    """Start ``python -m torch.distributed.run --nproc-per-node n`` of this
+    script's ``--worker`` mode; returns the function that waits for it and
+    returns the wall seconds and each rank's record.  A rank's failure fails
+    the phase (the launcher then stops the others and exits non-zero)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+         "--master-addr", "127.0.0.1", "--master-port", str(port), str(Path(__file__).resolve()),
+         "--worker", kind, str(out), *args],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+
+    def wait() -> dict:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"{n}-rank {kind} failed ({proc.returncode}): "
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        ranks = [json.loads(out.with_name(f"{out.name}.rank{r}.json").read_text())
+                 for r in range(n)]
+        return {"seconds": seconds, "ranks": ranks}
+
+    return wait
+
+
+def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict:
+    """``[multi-gpu]``: the multi-rank paths on the one card, each run in its
+    own processes (see the module docstring, (a)-(d))."""
+    import numpy as np
+
+    from paradis_torch.data import zarrlite
+
+    res = {"card": card, "ok": True}
+    common = ["--device", "cuda", f"dataset.root_dir={lr_store}", *LOOP_DATES,
+              *TRAIN_OVERRIDES, "training.log_every_n_steps=1", f"training.log_dir={root}"]
+
+    def train(name: str, n: int, args: list[str], also=None) -> dict:
+        """A run of ``cli.train`` on ``n`` ranks (with ``also``, the waiter of
+        another launch, running beside it)."""
+        wait = torchrun(n, "train", root / name, common + [f"training.experiment_name={name}",
+                                                           *args])
+        try:
+            run = wait()
+        finally:
+            beside = also() if also is not None else None
+        run["beside"] = beside
+        exp = root / name
+        m = read_metrics(exp / "metrics.csv")
+        steps = sorted(m["train_loss"])
+        n_val = len(m.get("val_loss", {}))
+        run.update(losses=[m["train_loss"][s] for s in steps], steps=steps,
+                   grad_norms=[m["grad_norm"][s] for s in steps], val_batches=n_val,
+                   samples_per_s=float(np.median([m["samples_per_sec"][s] for s in steps[1:]])),
+                   files=sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file()))
+        taken = len(steps)
+        # each rank: 8 forward and 8 backward launches a step, 8 forward a
+        # validation batch (its rows of it)
+        run["launches_ok"] = all(r["launches"] == [8 * (taken + n_val), 8 * taken, 0, 0, 0, 0]
+                                 for r in run["ranks"])
+        return run
+
+    def close(a: list, b: list) -> float:
+        return float(max(abs(x - y) / abs(y) for x, y in zip(a, b)))
+
+    steps = f"training.max_steps={MG_STEPS}"
+    # (a) two gloo ranks on the one card, batch 1 a rank; (b) one NCCL rank, batch 2
+    dp = train("dp2", 2, [steps, "compute.num_devices=2", "compute.dist_backend=gloo",
+                          "compute.batch_size=1"])
+    one = train("nccl1", 1, [steps, "compute.dist_backend=nccl", "compute.batch_size=2",
+                             "training.checkpointing.enabled=false"])
+    dp["loss_rel_gap"] = close(dp["losses"], one["losses"])
+    # what one process writes in one epoch: only rank 0 wrote
+    dp["files_as_one_process"] = dp["files"] == MG_RUN_FILES
+    res["dp"], res["nccl"] = dp, one
+    res["ok"] = (dp["launches_ok"] and one["launches_ok"] and dp["steps"] == one["steps"]
+                 == list(range(1, MG_STEPS + 1)) and dp["loss_rel_gap"] <= MG_LOSS_RTOL
+                 and dp["files_as_one_process"])
+
+    # (c) FSDP on two gloo ranks, on 2 samples (one global batch an epoch):
+    # 2k steps saving after k, and a resume from it for k more (FSDP against
+    # the replicated ranks on the same samples: tests/test_torch_multirank.py)
+    k = MG_FSDP_K
+    two = [f"training.max_steps={2 * k}", "compute.num_devices=2",
+           "compute.dist_backend=gloo", "compute.fsdp=true",
+           "training.dataset.end_date=2000-01-01T06:00:00",
+           f"training.checkpointing.step_every={k}"]
+    full = train("fsdp", 2, two)
+    # (d) the forecast CLI on two gloo ranks against [forecast-io]'s one-process
+    # store, beside (c)'s resumed run (the card's third and fourth processes)
+    out = root / "fc2.zarr"
+    fc_wait = torchrun(2, "forecast", root / "fc2", [
+        "--checkpoint-path", str(fio_root / f"fio_params{NLAT}.pt"), "--output-file", str(out),
+        "--forecast-steps", str(STEPS), "--sampling-interval", FIO_INTERVAL,
+        "--start-date", FIO_START, "--end-date", FIO_GRIDS[(NLAT, NLON)][1],
+        "--batch-size", "1", "--write-every-n", str(FIO_WRITE_EVERY), "--device", "cuda",
+        "--num-devices", "2", f"dataset.root_dir={fio_root / f'fio_store{NLAT}'}",
+        "compute.dist_backend=gloo"])
+    step_k = root / "fsdp" / "checkpoints" / "steps" / f"{k:08d}"
+    resumed = train("fsdp_resumed", 2, [*two, "init.restart=true",
+                                        f"init.checkpoint_path={step_k}"], also=fc_wait)
+    fc = resumed.pop("beside")
+    shards = sorted(p.name for p in (step_k / "state_sharded").iterdir())
+    resumed["loss_rel_gap"] = close(resumed["losses"], full["losses"][k:])
+    res["fsdp"], res["fsdp_resumed"] = full, resumed
+    res["ok"] = res["ok"] and (full["launches_ok"] and resumed["launches_ok"]
+                               and shards == ["shard_p0.pt", "shard_p1.pt"]
+                               and full["steps"] == list(range(1, 2 * k + 1))
+                               and resumed["steps"] == list(range(k + 1, 2 * k + 1))
+                               and resumed["loss_rel_gap"] <= MG_LOSS_RTOL)
+
+    a, b = zarrlite.open_store(fio_root / f"fio_forecast{NLAT}.zarr"), zarrlite.open_store(out)
+    unequal = sorted(name for name in a.arrays()
+                     if not np.array_equal(a[name][...], b[name][...], equal_nan=True))
+    inits = FIO_GRIDS[(NLAT, NLON)][2]
+    fc.update(unequal_arrays=unequal, arrays=len(list(a.arrays())),
+              total=fc["ranks"][0]["result"]["total"],
+              launches=[r["launches"] for r in fc["ranks"]])
+    res["forecast"] = fc
+    res["ok"] = res["ok"] and (not unequal and sorted(a.arrays()) == sorted(b.arrays())
+                               and fc["total"]["samples"] == inits
+                               and all(r["launches"] == [8 * STEPS, 0, 0, 0, 0, 0]
+                                       for r in fc["ranks"]))
+    return res
+
+
+def report_bench_model(res: dict, card: str) -> None:
+    """``[bench-model]``'s lines; fails the phase on a failed gate."""
+    log("[bench-model] " + json.dumps(res))
+    if not res["ok"]:
+        raise SystemExit(f"the model benchmark failed its checks: {res}")
+    log("[bench-model] " + ", ".join(
+        f"{k} {res[k]:.3f} ms (first call {res['rows'][k]['first_call_s']:.2f} s)"
+        for k in ("xla_fwd", "xla_bwd", "pallas_fwd", "pallas_bwd"))
+        + f"; kernels built before: {res['kernels_built']}; bf16 {NLAT}x{NLON} batch 1 "
+        f"on {card}")
+
+
+def report_multi_gpu(mg: dict, card: str) -> None:
+    """``[multi-gpu]``'s lines; fails the phase on a failed gate."""
+    log("[multi-gpu] " + json.dumps(mg))
+    if not mg["ok"]:
+        raise SystemExit(f"the multi-rank runs failed their checks: {mg}")
+    for key in ("dp", "nccl", "fsdp", "fsdp_resumed"):
+        r = mg[key]
+        log(f"[multi-gpu] {key}: {len(r['ranks'])} rank(s), {r['seconds']:.1f} s, losses "
+            f"{[round(v, 6) for v in r['losses']]}, {r['samples_per_s']:.3f} samples/s, "
+            f"launches a rank {[x['launches'][:2] for x in r['ranks']]} on {card}")
+    log(f"[multi-gpu] loss gaps (limit {MG_LOSS_RTOL}): gloo x2 against nccl x1 "
+        f"{mg['dp']['loss_rel_gap']:.3g}, fsdp resumed {mg['fsdp_resumed']['loss_rel_gap']:.3g}; "
+        f"forecast x2 {mg['forecast']['seconds']:.1f} s, "
+        f"{mg['forecast']['total']['forecast_steps_per_s']:.3f} steps/s, unequal arrays "
+        f"{mg['forecast']['unequal_arrays']} on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2794,6 +3138,21 @@ def main() -> int:
 
     phase_done("[train]")
 
+    # [export]'s 5.625° inputs and cli.export, in a process of its own while
+    # the device-bound 1.40625° phases run (prepare_export)
+    import tempfile
+
+    fio_dir = tempfile.TemporaryDirectory(prefix="paradis-fio-")
+    # kept to [multi-gpu], which trains on [data]'s 5.625° store
+    data_tmp = tempfile.TemporaryDirectory(prefix="paradis-data-")
+    prep_log = open(Path(fio_dir.name) / "export_prep.log", "w")
+    prep = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker",
+                             "export", fio_dir.name, data_tmp.name], stdout=prep_log,
+                            stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
+                            start_new_session=True)
+    # it and its cli.export end with this script, whatever its end
+    atexit.register(lambda: prep.poll() is None and os.killpg(prep.pid, 9))
+
     # the 1.40625° bf16 train step under the policies that keep the
     # interpolation's output (and its positions) through the replay, beside
     # none's run above
@@ -2856,28 +3215,27 @@ def main() -> int:
     phase_done("[checkpoint]")
 
     # the data pipeline, then the host loop and the training CLI fed by it
-    import tempfile
 
     data_t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="paradis-data-") as data_dir:
-        data = run_data(card, Path(data_dir))
-        data["seconds"] = time.perf_counter() - data_t0
-        log("[data] " + json.dumps(data))
-        if not data["ok"]:
-            raise SystemExit(f"the data pipeline failed its checks: {data}")
-        log(f"[data] native library built in {data['native_build_s']:.1f} s; "
-            + "; ".join(f"{g}: raw store {st['build_s']:.1f} s / {st['raw_bytes']} B, "
-                        f"preprocess {st['preprocess_s']:.1f} s / {st['store_bytes']} B"
-                        for g, st in data["stores"].items())
-            + f"; a 1.40625° sample ({data['sample_bytes']} B) in "
-            f"{data['assemble_ms_median']:.1f} ms; a batch to the card pinned "
-            f"{data['h2d_pinned_ms']:.2f} ms (copy alone {data['h2d_pinned_copy_only_ms']:.2f}), "
-            f"pageable {data['h2d_pageable_ms']:.2f} ms; {data['seconds']:.1f} s on {card}")
-        loop_t0 = time.perf_counter()
-        loop_res = run_train_loop(card, Path(data_dir), data["stores"],
-                                  {"hr": hr_trains["bfloat16"]["train_steps_per_s"],
-                                   "lr": trains["bfloat16"]["train_steps_per_s"]})
-        loop_res["seconds"] = time.perf_counter() - loop_t0
+    data_dir = data_tmp.name
+    data = run_data(card, Path(data_dir), prep)
+    data["seconds"] = time.perf_counter() - data_t0
+    log("[data] " + json.dumps(data))
+    if not data["ok"]:
+        raise SystemExit(f"the data pipeline failed its checks: {data}")
+    log(f"[data] native library built in {data['native_build_s']:.1f} s; "
+        + "; ".join(f"{g}: raw store {st['build_s']:.1f} s / {st['raw_bytes']} B, "
+                    f"preprocess {st['preprocess_s']:.1f} s / {st['store_bytes']} B"
+                    for g, st in data["stores"].items())
+        + f"; a 1.40625° sample ({data['sample_bytes']} B) in "
+        f"{data['assemble_ms_median']:.1f} ms; a batch to the card pinned "
+        f"{data['h2d_pinned_ms']:.2f} ms (copy alone {data['h2d_pinned_copy_only_ms']:.2f}), "
+        f"pageable {data['h2d_pageable_ms']:.2f} ms; {data['seconds']:.1f} s on {card}")
+    loop_t0 = time.perf_counter()
+    loop_res = run_train_loop(card, Path(data_dir), data["stores"],
+                              {"hr": hr_trains["bfloat16"]["train_steps_per_s"],
+                               "lr": trains["bfloat16"]["train_steps_per_s"]})
+    loop_res["seconds"] = time.perf_counter() - loop_t0
     log("[train-loop] " + json.dumps(loop_res))
     if not loop_res["ok"]:
         raise SystemExit(f"the host training loop failed its checks: {loop_res}")
@@ -2905,8 +3263,7 @@ def main() -> int:
     # forecast I/O: the forecast CLI writes a WB2 store from the card, scored
     fio_t0 = time.perf_counter()
     # kept to [export], which exports the 5.625° checkpoint on the 5.625° store
-    fio_dir = tempfile.TemporaryDirectory(prefix="paradis-fio-")
-    fio = run_forecast_io(card, Path(fio_dir.name))
+    fio = run_forecast_io(card, Path(fio_dir.name), prep)
     fio["seconds"] = time.perf_counter() - fio_t0
     log("[forecast-io] " + json.dumps(fio))
     if not fio["ok"]:
@@ -2927,13 +3284,13 @@ def main() -> int:
     phase_done("[forecast-io]")
 
     # the serving export: torch.export programs loaded back, on the kernels
-    export = run_export(card, Path(fio_dir.name))
-    fio_dir.cleanup()
+    export = run_export(card, Path(fio_dir.name), prep)
+    prep_log.close()
     log("[export] " + json.dumps(export))
     if not export["ok"]:
         raise SystemExit(f"the serving artifact failed its checks: {export}")
     for key, r in export.items():
-        if key == "ok":
+        if key in ("ok", "export_wait_s"):
             continue
         log(f"[export] {key} float32: export {r['export_seconds']} s"
             + (f" (cli.export {r['cli_export_s']:.1f} s)" if "cli_export_s" in r else "")
@@ -2944,6 +3301,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_done("[export]")
+
+    # the model-level benchmark, both impls in turns
+    bench_mod = run_bench_model(card)
+    report_bench_model(bench_mod, card)
+    torch.cuda.empty_cache()
+
+    phase_done("[bench-model]")
+
+    # the multi-rank paths, each in its own processes
+    mg_dir = tempfile.TemporaryDirectory(prefix="paradis-mg-")
+    mg = run_multi_gpu(card, Path(data["stores"][f"{NLAT}x{NLON}"]["path"]),
+                       Path(fio_dir.name), Path(mg_dir.name))
+    mg_dir.cleanup()
+    fio_dir.cleanup()
+    data_tmp.cleanup()
+    report_multi_gpu(mg, card)
+    torch.cuda.empty_cache()
+
+    phase_done("[multi-gpu]")
 
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
@@ -2961,7 +3337,7 @@ def main() -> int:
 
     # the serving and training paths through the row-chunked kernels
     chunk_runs, chunk_trains = {}, {}
-    for grid, overrides, rw, ab_pairs in (((NLAT, NLON), (), CHUNK_RW, 2),
+    for grid, overrides, rw, ab_pairs in (((NLAT, NLON), (), CHUNK_RW, 1),
                                           (HR, HR_CHUNK_OVERRIDES, HR_CHUNK_RW, 0)):
         res = run_forecast("float32", card, grid, overrides, chunk_rw=rw, ab_pairs=ab_pairs)
         log("[forecast-chunk] " + json.dumps(res))
@@ -3008,7 +3384,7 @@ def main() -> int:
 
     interp_gen.gen_launches = interp_gen.bwd_gen_launches = 0
     interp_mm.mm_launches = interp_mm.mmT_launches = interp_mm.bwd_mm_launches = 0
-    bench = bench_interp.main([])
+    bench = bench_interp.main(["--repeats", str(BENCH_INTERP_REPEATS)])
     bench_launches = {k: n for k, n in bench_interp.launch_counts().items()
                       if k in ("interp_gen", "interp_bwd_gen", "interp_mm", "interp_mmT",
                                "interp_bwd_mm")}
@@ -3088,6 +3464,18 @@ def main() -> int:
         if k["name"] == "interp_band_fwd[bicubic,float32]":
             k["artifact_forward_launches_per_call"] = (
                 ex_hr["launches_per_call"]["steploop"]["interp_band_fwd"] // STEPS)
+    # and the multi-rank runs' on each rank ([multi-gpu]), and bench_model's a call
+    for k in kernels:
+        if k["name"] == "interp_fwd[bicubic,bfloat16]":
+            k["data_parallel_launches_per_rank"] = [r["launches"][0] for r in mg["dp"]["ranks"]]
+            k["bench_model_launches_per_call"] = (
+                bench_mod["rows"]["pallas_fwd"]["launches_per_call"]["interp_fwd"])
+        if k["name"] == "interp_bwd[bicubic,bfloat16]":
+            k["data_parallel_launches_per_rank"] = [r["launches"][1] for r in mg["dp"]["ranks"]]
+            k["bench_model_launches_per_call"] = (
+                bench_mod["rows"]["pallas_bwd"]["launches_per_call"]["interp_bwd"])
+        if k["name"] == "interp_fwd[bicubic,float32]":
+            k["forecast_launches_per_rank"] = mg["forecast"]["launches"]
     for c in rollout_checks:
         kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -3148,4 +3536,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:3] == ["--worker", "export"]:
+        sys.exit(prepare_export(Path(sys.argv[3]), Path(sys.argv[4])))
+    sys.exit(rank_worker(sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())

@@ -8,8 +8,17 @@
 Forecasts in float32 on ``--device`` (``cuda`` by default, and raises
 without a card); ``--device cpu`` or ``compute.platform=cpu`` forecasts on
 the CPU.  The weights come from ``train.checkpoint.load_params`` (a params
-file, a checkpoint directory or a checkpoints root).  One device only:
-``--num-devices`` above 1 raises (ROADMAP.md, Queue 1 item 8).
+file, a checkpoint directory, a sharded checkpoint of an FSDP run, or a
+checkpoints root).
+
+Over several GPUs, one process each, under the launcher:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m paradis_torch.cli.forecast \
+        --num-devices 2 --checkpoint-path ckpt_dir --output-file out.zarr ...
+
+Each rank forecasts its contiguous share of the init times on
+``cuda:LOCAL_RANK`` into the one store (``run_forecast``);
+``--num-devices`` must equal the launched world size.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ def parse_args(argv=None):
     p.add_argument("--end-date", type=str, default=None)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--num-devices", type=int, default=1,
-                   help="devices for the forecast rollout (one: multi-GPU is not ported)")
+                   help="data-parallel devices: the launched world size")
     p.add_argument("--write-every-n", type=int, default=10)
     p.add_argument("--device", default="cuda", help="device to forecast on")
     p.add_argument("overrides", nargs="*", help="key.path=value overrides")
@@ -40,21 +49,13 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run the forecast; returns ``run_forecast``'s seconds and counts."""
     args = parse_args(argv)
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: paradis_torch forecasts on one device; "
-            f"multi-GPU runs are not ported yet (ROADMAP.md, Queue 1 item 8)")
 
     import torch
 
     from paradis_torch import resolve_device
     from paradis_torch.config import load_config
-    from paradis_torch.data.dataset import ERA5Dataset
-    from paradis_torch.data.pipeline import BatchLoader
-    from paradis_torch.forecast.rollout import run_forecast
-    from paradis_torch.forecast.writer import ZarrForecastWriter
-    from paradis_torch.model.paradis import Paradis
-    from paradis_torch.train.checkpoint import load_params
+    from paradis_torch.distributed import (data_parallel_size, initialize_distributed,
+                                           shutdown_distributed)
     from paradis_torch.utils.system import platform_device
 
     cfg = load_config(args.config, overrides=args.overrides)
@@ -83,6 +84,36 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    ranks = initialize_distributed(cfg, device)
+    try:
+        # the launched world against --num-devices and the config, before any file
+        if args.num_devices != ranks.world:
+            raise ValueError(
+                f"--num-devices {args.num_devices}, but {ranks.world} process(es) were "
+                f"launched: a multi-GPU forecast launches one process per device "
+                f"(python -m torch.distributed.run --nproc-per-node N)")
+        data_parallel_size(cfg)
+        stats = _forecast(cfg, args, ranks)
+    finally:
+        shutdown_distributed()
+    if ranks.rank == 0:
+        print(f"forecast written: {args.output_file}")
+    return stats
+
+
+def _forecast(cfg, args, ranks) -> dict:
+    """This rank's share of the forecast, on its device."""
+    import torch
+
+    from paradis_torch.data.dataset import ERA5Dataset
+    from paradis_torch.data.pipeline import BatchLoader
+    from paradis_torch.distributed import contiguous_share
+    from paradis_torch.forecast.rollout import DatasetShare, run_forecast
+    from paradis_torch.forecast.writer import ZarrForecastWriter
+    from paradis_torch.model.paradis import Paradis
+    from paradis_torch.train.checkpoint import load_params
+
+    device = ranks.device
     dataset = ERA5Dataset(
         cfg.dataset.root_dir,
         cfg.forecast.start_date,
@@ -99,11 +130,10 @@ def main(argv=None) -> dict:
     load_params(args.checkpoint_path, model)
 
     writer = ZarrForecastWriter(cfg, dataset)
-    loader = BatchLoader(dataset, args.batch_size, shuffle=False, drop_last=False,
+    share = DatasetShare(dataset, *contiguous_share(len(dataset), ranks.rank, ranks.world))
+    loader = BatchLoader(share, args.batch_size, shuffle=False, drop_last=False,
                          device=device)
-    stats = run_forecast(model, dataset, cfg, writer, loader)
-    print(f"forecast written: {args.output_file}")
-    return stats
+    return run_forecast(model, dataset, cfg, writer, loader)
 
 
 if __name__ == "__main__":

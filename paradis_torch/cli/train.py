@@ -8,6 +8,16 @@ Hydra-style dotted overrides over the built-in defaults (reference
 
 Trains on ``--device`` (``cuda`` by default, and raises without a card);
 ``--device cpu`` or ``compute.platform=cpu`` trains on the CPU.
+
+Data parallel over several GPUs, one process each, under the launcher:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m paradis_torch.cli.train \
+        compute.num_devices=2 dataset.root_dir=/data/era5 ...
+
+Each rank trains on ``cuda:LOCAL_RANK``; ``compute.fsdp=true`` shards the
+parameters and the optimizer state, ``compute.dist_backend`` picks the
+backend (``auto``: NCCL on cards, gloo on the CPU; ranks sharing one card
+need ``gloo``).  ``--device cpu`` runs the ranks on the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -27,11 +37,11 @@ def main(argv=None):
 
     from paradis_torch import resolve_device
     from paradis_torch.config import load_config
+    from paradis_torch.distributed import barrier, initialize_distributed, shutdown_distributed
     from paradis_torch.train.loop import Trainer
     from paradis_torch.utils.system import platform_device, setup_system
 
     cfg = load_config(args.config, overrides=args.overrides)
-    setup_system(cfg)
     device = resolve_device(args.device)
     if platform_device(cfg).type == "cpu":
         device = torch.device("cpu")
@@ -39,12 +49,21 @@ def main(argv=None):
         raise RuntimeError("--device cuda asked for and no CUDA device is available; "
                            "pass --device cpu (or compute.platform=cpu) to train on the CPU")
 
-    log_dir = cfg.training.log_dir
-    if cfg.training.get("experiment_name"):
-        log_dir = f"{log_dir}/{cfg.training.experiment_name}"
-    trainer = Trainer(cfg, log_dir=log_dir, device=device)
-    result = trainer.fit()
-    print(f"training done: {result}")
+    # the process group before the Trainer (reference multi-node DDP,
+    # train.py:44-49): a no-op for one process started without the launcher
+    ranks = initialize_distributed(cfg, device)
+    try:
+        setup_system(cfg)
+        barrier()  # every rank has checked the experiment directory before any writes
+        log_dir = cfg.training.log_dir
+        if cfg.training.get("experiment_name"):
+            log_dir = f"{log_dir}/{cfg.training.experiment_name}"
+        trainer = Trainer(cfg, log_dir=log_dir, device=ranks.device)
+        result = trainer.fit()
+    finally:
+        shutdown_distributed()
+    print(f"training done: {result}" if ranks.world == 1
+          else f"training done (rank {ranks.rank} of {ranks.world}): {result}")
     return result
 
 

@@ -150,8 +150,17 @@ def load_config(path: str | Path | None = None, overrides: Iterable[str] = ()) -
     return cfg.resolved()
 
 
+# Settings of the port that the JAX package has not, merged under the data
+# file's.  compute.dist_backend is the one such setting: the process group's
+# backend for multi-GPU runs (auto | nccl | gloo; auto is nccl on cards and
+# gloo on the CPU, paradis_torch/distributed.py).  The JAX package has no
+# counterpart: its collectives are XLA's.
+PORT_DEFAULTS = {"compute": {"dist_backend": "auto"}}
+
+
 def default_config() -> Config:
-    """Built-in defaults mirroring reference ``config/paradis_settings.yaml:1-247``."""
+    """Built-in defaults mirroring reference ``config/paradis_settings.yaml:1-247``,
+    with the port's own settings (``PORT_DEFAULTS``)."""
     here = Path(__file__).resolve().parent.parent / "configs" / "default.yaml"
     with open(here) as f:
-        return _wrap(yaml.safe_load(f))
+        return _wrap(PORT_DEFAULTS).merged_with(yaml.safe_load(f))

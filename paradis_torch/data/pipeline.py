@@ -74,13 +74,20 @@ def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
 
 class BatchLoader:
     """Iterable over shuffled, prefetched batches of an ERA5Dataset, as
-    tensors on ``device`` (``cuda`` unless the caller passes another)."""
+    tensors on ``device`` (``cuda`` unless the caller passes another).
+
+    ``rows`` (over several ranks, ``distributed.local_batch_slice``): the
+    rows of each global batch of ``batch_size`` this rank loads.  Every rank
+    walks the same seeded global order, so rank r's samples of a batch are
+    rows ``rows`` of the one-process run's batch
+    (``paradis_tpu/data/pipeline.py:68-91``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
-                 device=None):
+                 device=None, rows: slice | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows if rows is not None else slice(None)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = max(1, prefetch)
@@ -144,7 +151,7 @@ class BatchLoader:
         def assemble_worker():
             try:
                 for b in range(n_batches):
-                    idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+                    idxs = order[b * self.batch_size : (b + 1) * self.batch_size][self.rows]
                     batch = self._collate([self.dataset[int(i)] for i in idxs])
                     if not _put(q_host, batch, stop):
                         return

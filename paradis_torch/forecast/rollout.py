@@ -8,7 +8,10 @@ kept; it runs eagerly under ``torch.inference_mode()`` on the model's
 device.  ``run_forecast``: for each batch of init times, one rollout
 on the device, one device → host copy of its stored steps, and region writes
 of ``forecast.write_every_n`` stored steps at a time to the WB2-layout store
-(reference ``predict_step``, ``trainer.py:731-815``).
+(reference ``predict_step``, ``trainer.py:731-815``).  Over several ranks
+each rank forecasts its contiguous share of the init times into the one
+store (the counterpart of the JAX ``mesh`` branch, the reference's
+inference DP).
 """
 
 from __future__ import annotations
@@ -81,13 +84,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_forecast(model, dataset, cfg, writer, batch_loader, mesh=None) -> dict:
-    """Forecast every sample of ``dataset`` and write the WB2 store.
+class DatasetShare:
+    """Items ``[lo, hi)`` of a dataset as a dataset of their own: a rank's
+    share of the init times.  A prediction dataset's items keep their index
+    in the whole dataset, so the writer places each in the one store."""
+
+    def __init__(self, dataset, lo: int, hi: int):
+        self.dataset, self.lo, self.hi = dataset, lo, hi
+        self.prediction_stage = getattr(dataset, "prediction_stage", False)
+
+    def __len__(self) -> int:
+        return self.hi - self.lo
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        return self.dataset[self.lo + i]
+
+
+def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
+    """Forecast every sample of ``batch_loader`` and write the WB2 store of
+    ``dataset``.
 
     ``batch_loader`` is a prediction-mode ``BatchLoader`` on the model's
-    device (the rollout raises on a batch elsewhere).  One device only: a
-    ``mesh`` or a multi-device ``compute`` setting raises before any store
-    is written (ROADMAP.md, Queue 1 item 8).
+    device (the rollout raises on a batch elsewhere).  With one process it
+    covers ``dataset``.  Over several ranks (a process group, as
+    ``cli.forecast --num-devices N`` under the launcher makes) it covers this
+    rank's contiguous share (``DatasetShare`` of
+    ``distributed.contiguous_share``): rank 0 creates the store, and after a
+    barrier every rank writes its own inits' regions.  Those are disjoint:
+    the writer's chunks hold one init time each (``chunks=(1, ...)`` in
+    ``ZarrForecastWriter.init_store``), so no two ranks touch one chunk file.
+    A ragged tail needs no padding: the ranks share no collective in a
+    rollout.  The spatial mesh axes raise (``distributed.check_supported``).
     On a card the native host library is required, so that the store's
     chunks are Blosc-zstd and never the zlib frames its absence would give.
 
@@ -97,15 +126,14 @@ def run_forecast(model, dataset, cfg, writer, batch_loader, mesh=None) -> dict:
     ``write_s`` (postprocessing and region writes, ``init_store`` included),
     with ``steps`` (forecast steps taken, summed over init times),
     ``samples``, ``copy_bytes`` and ``forecast_steps_per_s`` (steps over
-    ``seconds``).
+    ``seconds``).  Over several ranks these are this rank's, ``ranks`` lists
+    every rank's, and ``total`` holds their sums (``seconds`` the slowest
+    rank's, ``forecast_steps_per_s`` all steps over it).
     """
-    from paradis_torch.train.loop import check_single_device
+    from paradis_torch import distributed
 
-    if mesh is not None:
-        raise NotImplementedError("paradis_torch forecasts on one device; a mesh needs "
-                                  "multi-GPU runs, which are not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 8)")
-    check_single_device(cfg, "forecasts")
+    distributed.check_supported(cfg)
+    world, rank = distributed.world_size(), distributed.get_rank()
     device = model.device
     if device.type == "cuda":
         from paradis_torch.data import native
@@ -115,7 +143,9 @@ def run_forecast(model, dataset, cfg, writer, batch_loader, mesh=None) -> dict:
     rollout = make_forecast_rollout(model, cfg)
     stats = dict(rollout_s=0.0, copy_s=0.0, write_s=0.0, steps=0, samples=0, copy_bytes=0)
     t0 = time.perf_counter()
-    writer.init_store(dataset)
+    if rank == 0:
+        writer.init_store(dataset)
+    distributed.barrier()  # the store exists before any rank writes
     stats["write_s"] += time.perf_counter() - t0
     write_every = int(cfg.forecast.get("write_every_n") or writer.stored_steps)
 
@@ -145,4 +175,13 @@ def run_forecast(model, dataset, cfg, writer, batch_loader, mesh=None) -> dict:
         stats["copy_bytes"] += stored.nbytes
     stats["seconds"] = time.perf_counter() - start
     stats["forecast_steps_per_s"] = stats["steps"] / stats["seconds"]
-    return stats
+    if world == 1:
+        return stats
+    import torch.distributed as dist
+
+    ranks = [None] * world
+    dist.all_gather_object(ranks, stats)
+    total = {k: sum(r[k] for r in ranks) for k in ("steps", "samples", "copy_bytes")}
+    total["seconds"] = max(r["seconds"] for r in ranks)
+    total["forecast_steps_per_s"] = total["steps"] / total["seconds"]
+    return dict(stats, rank=rank, ranks=ranks, total=total)

@@ -1,7 +1,6 @@
 """Checkpoints with the reference's three retention policies.
 
-Port of ``paradis_tpu/train/checkpoint.py`` on one device (the JAX package's
-multi-host shard path has no counterpart yet).  The layout is the JAX
+Port of ``paradis_tpu/train/checkpoint.py``.  The layout is the JAX
 package's: ``<root>/{steps,epochs,best}/<tag>/`` with the tags ``%08d``
 (optimizer step), ``%04d`` (epoch) and ``best``, a ``<root>/last.json``
 pointer to the newest checkpoint and ``<root>/best/metric.json``.  Each
@@ -21,6 +20,18 @@ weights_only=True)``, which runs no pickled code.  ``state.pt`` holds
 * ``accum``: where ``micro_step % accumulate_grad_batches != 0``, the
   gradients accumulated so far in the window (JAX's ``accum``), so a resume
   in the middle of a window is the same run.
+
+Over several ranks every rank calls the manager's methods, in the same
+order (their decisions come from the host-mirrored step and the ranks'
+averaged validation loss).  A replicated state is saved by rank 0 after a
+barrier, as one ``state.pt``; a sharded state (``compute.fsdp`` on more
+than one rank) by every rank, each its own file in ``state_sharded/``
+(``train/sharded_ckpt.py``, the counterpart of ``_is_cross_process_sharded``
+at ``paradis_tpu/train/checkpoint.py:30``).  In the middle of an
+accumulation window the ranks' gradients are first averaged over the ranks
+in place: the window's mean is what any world size resumes from.  Either
+kind restores into a run of any world size, sharded or not, and
+``load_params`` reads a sharded checkpoint's parameters in one process.
 
 A file is written to a temporary name and renamed into place.  A load reads
 and checks the whole file before it changes anything: a truncated file fails
@@ -42,7 +53,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from paradis_torch import distributed
 from paradis_torch.ops.resize import linear_interp_matrix
+from paradis_torch.train.optim import param_states_of
+from paradis_torch.train.sharded_ckpt import SHARD_DIR, is_sharded, read_sharded, save_sharded
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
@@ -50,7 +64,7 @@ _STATE_FORMAT = "paradis_torch.state/1"
 _PARAMS_FORMAT = "paradis_torch.params/1"
 
 
-def _write(path: Path, obj: dict) -> None:
+def write_file(path: Path, obj: dict) -> None:
     """``torch.save`` to a temporary name beside ``path``, then rename."""
     tmp = path.with_name(f".{path.name}.tmp-{os.getpid()}")
     torch.save(obj, tmp)
@@ -84,32 +98,48 @@ def state_dict(state, accumulate_grad_batches: int = 1) -> dict:
     return out
 
 
-def _check_params(loaded: dict, model: nn.Module) -> None:
-    """Strict: the same names, and each shape the model's (JAX's errors)."""
-    target = dict(model.named_parameters())
+def _check_params(loaded: dict, model: nn.Module, shapes: dict | None = None) -> None:
+    """Strict: the same names, and each shape the model's (JAX's errors).
+    ``shapes``: the parameters' whole shapes where the model holds shards."""
+    target = shapes or {n: p.shape for n, p in model.named_parameters()}
     missing, extra = sorted(set(target) - set(loaded)), sorted(set(loaded) - set(target))
     if missing or extra:
         raise ValueError("checkpoint parameter tree does not match the model "
                          f"(missing {missing}, unexpected {extra})")
-    for name, p in target.items():
-        if tuple(loaded[name].shape) != tuple(p.shape):
+    for name, shape in target.items():
+        if tuple(loaded[name].shape) != tuple(shape):
             raise ValueError(f"shape mismatch at {name}: {tuple(loaded[name].shape)} "
-                             f"vs expected {tuple(p.shape)}")
+                             f"vs expected {tuple(shape)}")
 
 
 def load_state_dict(state, sd: dict) -> None:
-    """Restore ``state_dict()``'s output into ``state`` (model, optimizer,
-    counters and any accumulated gradients), all checked before any copy."""
-    model, optimizer = state.model, state.optimizer
-    _check_params(sd["params"], model)
+    """Restore ``state_dict()``'s output, or a merged sharded checkpoint
+    (``sharded_ckpt.read_sharded``), into ``state`` (model, optimizer,
+    counters and any accumulated gradients), all checked before any copy.
+
+    Sharded (``state.parallel.fsdp``), a rank copies only the parameters and
+    optimizer state it owns; the accumulated gradients go to every parameter,
+    so a restore in the middle of a window gathers the parameters first (a
+    collective: every rank restores)."""
+    model, optimizer, parallel = state.model, state.optimizer, state.parallel
+    sharded = parallel is not None and parallel.fsdp
+    _check_params(sd["params"], model, parallel.shapes if sharded else None)
     accum = sd.get("accum", {})
     bad = sorted(n for n in accum if n not in sd["params"]
                  or tuple(accum[n].shape) != tuple(sd["params"][n].shape))
     if bad:
         raise ValueError(f"accumulated gradients do not fit the parameters: {bad}")
-    optimizer.load_state_dict(sd["optimizer"])  # checks all of it before it copies
+    opt = sd["optimizer"]
+    if "params" in opt or sharded:  # by name: any split of the parameters over ranks
+        optimizer.load_param_states(opt if "params" in opt else param_states_of(opt))
+    else:
+        optimizer.load_state_dict(opt)  # checks all of it before it copies
+    if sharded and accum:
+        parallel.gather()
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if sharded and not parallel.owns(name) and p.numel() == 0:
+                continue  # released: its owner holds it
             p.copy_(sd["params"][name])
             p.grad = accum[name].to(p.device, p.dtype).clone() if name in accum else None
     state.step, state.micro_step = int(sd["step"]), int(sd["micro_step"])
@@ -129,18 +159,37 @@ class CheckpointManager:
         self.step_every = step_every
         self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.best_metric = math.inf
-        for sub in ("steps", "epochs", "best"):
-            (self.root / sub).mkdir(parents=True, exist_ok=True)
+        self.main = distributed.is_main_process()  # rank 0 owns the directory
+        if self.main:
+            for sub in ("steps", "epochs", "best"):
+                (self.root / sub).mkdir(parents=True, exist_ok=True)
 
     # -- save -------------------------------------------------------------------
 
     def _save(self, path: Path, state, with_params: bool = True) -> None:
         """The full train state, and for epoch and best checkpoints the bare
-        parameters beside it (step checkpoints skip that duplicate)."""
+        parameters beside it (step checkpoints skip that duplicate).  Every
+        rank calls; see the module docstring for who writes what."""
+        parallel = state.parallel
+        mid_window = bool(state.micro_step % self.accumulate_grad_batches)
+        if parallel is not None and parallel.active and mid_window:
+            parallel.average_gradients(owned_only=False)
+        if parallel is not None and parallel.fsdp:
+            if self.main:
+                if path.exists():
+                    shutil.rmtree(path)
+                (path / SHARD_DIR).mkdir(parents=True)
+            distributed.barrier()
+            save_sharded(path / SHARD_DIR, state, with_accum=mid_window)
+            distributed.barrier()
+            return
+        distributed.barrier()
+        if not self.main:
+            return
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
-        _write(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
+        write_file(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
         if with_params:
             save_params(path / PARAMS_FILE, state.model)
 
@@ -148,22 +197,26 @@ class CheckpointManager:
         if step % self.step_every != 0 or step == 0:
             return False
         self._save(self.root / "steps" / f"{step:08d}", state, with_params=False)
-        self._write_pointer("last", self.root / "steps" / f"{step:08d}")
-        kept = sorted((self.root / "steps").iterdir())
-        for old in kept[: max(0, len(kept) - self.keep_steps)]:
-            shutil.rmtree(old)
+        if self.main:
+            self._write_pointer("last", self.root / "steps" / f"{step:08d}")
+            kept = sorted((self.root / "steps").iterdir())
+            for old in kept[: max(0, len(kept) - self.keep_steps)]:
+                shutil.rmtree(old)
         return True
 
     def save_epoch(self, epoch: int, state) -> None:
         self._save(self.root / "epochs" / f"{epoch:04d}", state)
-        self._write_pointer("last", self.root / "epochs" / f"{epoch:04d}")
+        if self.main:
+            self._write_pointer("last", self.root / "epochs" / f"{epoch:04d}")
 
     def maybe_save_best(self, metric: float, state) -> bool:
         if metric >= self.best_metric:
             return False
         self.best_metric = metric
         self._save(self.root / "best" / "best", state)
-        (self.root / "best" / "metric.json").write_text(json.dumps({"val_loss": float(metric)}))
+        if self.main:
+            (self.root / "best" / "metric.json").write_text(
+                json.dumps({"val_loss": float(metric)}))
         return True
 
     def _write_pointer(self, name: str, target: Path) -> None:
@@ -185,6 +238,9 @@ class CheckpointManager:
         if path is None:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
         path = _follow_pointer(path) or path
+        if path.is_dir() and is_sharded(path):
+            load_state_dict(state, read_sharded(path / SHARD_DIR))
+            return state
         if path.is_dir():
             path = path / STATE_FILE
         load_state_dict(state, _read(path, _STATE_FORMAT))
@@ -203,7 +259,7 @@ def _follow_pointer(path: Path) -> Path | None:
 
 def save_params(path: str | Path, model: nn.Module) -> None:
     """The model's parameters alone, as a ``params.pt`` file at ``path``."""
-    _write(Path(path), {"format": _PARAMS_FORMAT, "params": _params(model)})
+    write_file(Path(path), {"format": _PARAMS_FORMAT, "params": _params(model)})
 
 
 def load_params(path: str | Path, model: nn.Module) -> nn.Module:
@@ -211,8 +267,9 @@ def load_params(path: str | Path, model: nn.Module) -> nn.Module:
     resolution-transfer surgery.
 
     ``path``: a params file, a state file, a checkpoint directory (its
-    ``params.pt``, else the parameters of its ``state.pt``) or a checkpoints
-    root (through ``last.json``).  A GlobalBias ``U``/``V`` factor whose last
+    ``params.pt``, else the parameters of its ``state.pt``, or of every
+    rank's shard of a sharded checkpoint) or a checkpoints root (through
+    ``last.json``).  A GlobalBias ``U``/``V`` factor whose last
     dimension differs from the model's is linearly re-interpolated
     (align-corners), by the same float32 numpy product as the JAX package, so
     both give the same bits.  Names and the other shapes are checked
@@ -220,9 +277,12 @@ def load_params(path: str | Path, model: nn.Module) -> nn.Module:
     """
     path = Path(path)
     path = _follow_pointer(path) or path
-    if path.is_dir():
-        path = path / PARAMS_FILE if (path / PARAMS_FILE).exists() else path / STATE_FILE
-    obj = _read(path, _PARAMS_FORMAT, _STATE_FORMAT)
+    if path.is_dir() and is_sharded(path):
+        obj = read_sharded(path / SHARD_DIR)
+    else:
+        if path.is_dir():
+            path = path / PARAMS_FILE if (path / PARAMS_FILE).exists() else path / STATE_FILE
+        obj = _read(path, _PARAMS_FORMAT, _STATE_FORMAT)
     target = dict(model.named_parameters())
     loaded = {}
     for name, value in obj["params"].items():

@@ -12,13 +12,28 @@ callbacks, ``trainer.py``, ``utils/callbacks.py``, ``train.py``):
   * per-step wall-time (``dt``) and samples/sec logging, under the JAX loop's
     metric names.
 
-One device (``cuda`` unless the caller passes another).  The host mirrors
-the optimizer step, so schedules and cadences never read the device; the one
-host–device sync is ``float(m["loss"])`` at a sync point (``need_sync``).
+One device a process (``cuda`` unless the caller passes another).  The host
+mirrors the optimizer step, so schedules and cadences never read the device;
+the one host–device sync is ``float(m["loss"])`` at a sync point
+(``need_sync``).
+
+Over several ranks (a process group made by
+``distributed.initialize_distributed``, as ``cli.train`` does), the run is
+data parallel, the counterpart of the JAX loop's mesh branch
+(``paradis_tpu/train/loop.py:88-112``): the global batch is
+``compute.batch_size × world``, each rank loads its rows of it, the train
+step averages the gradients and the metrics over the ranks
+(``distributed.DataParallel``; ``compute.fsdp`` shards the parameters and
+the optimizer state), and only rank 0 writes ``metrics.csv``, the run
+snapshot and the profiler trace.  Every host-side decision (the NaN check,
+validation, early stopping, the plateau controller, checkpoint cadences)
+reads the ranks' averaged metrics, so all ranks take it alike and none waits
+in a collective that another has skipped.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -27,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from paradis_torch import resolve_device
+from paradis_torch import distributed, resolve_device
 from paradis_torch.data.dataset import ERA5Dataset
 from paradis_torch.data.pipeline import BatchLoader
 from paradis_torch.model.paradis import Paradis
@@ -57,17 +72,11 @@ def _host_rss_mb() -> float:
         return 0.0
 
 
-def check_single_device(cfg, what: str = "trains") -> None:
-    """Refuse the multi-device settings: multi-GPU training and forecasting
-    are not ported (``ROADMAP.md``, Queue 1 item 8)."""
-    compute = cfg.compute
-    many = {k: int(compute.get(k, 1) or 1)
-            for k in ("num_devices", "spatial_devices", "lat_devices", "num_nodes")}
-    wide = {k: v for k, v in many.items() if v > 1}
-    if wide or compute.get("coordinator_address", None):
-        raise NotImplementedError(
-            f"paradis_torch {what} on one device; {wide or 'compute.coordinator_address'} "
-            f"needs multi-GPU runs, which are not ported yet (ROADMAP.md, Queue 1 item 8)")
+class _NullMetrics:
+    """The metrics logger of a rank other than 0: it writes nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
 
 
 class NaNLossError(RuntimeError):
@@ -79,14 +88,18 @@ class Trainer:
 
     def __init__(self, cfg, log_dir: str | None = None, device=None):
         self.cfg = cfg
-        check_single_device(cfg)
+        self.world = distributed.data_parallel_size(cfg)  # raises before any batch
+        self.rank = distributed.get_rank()
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer on a CUDA device and none is available; "
                                "pass device='cpu' to train on the CPU")
         self.log_dir = Path(log_dir or cfg.training.log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.is_main = True  # one process
+        # store, checkpoint and metrics writes on rank 0 only (the reference's
+        # rank-0 gating under DDP, trainer.py:478-485)
+        self.is_main = distributed.is_main_process()
+        if self.is_main:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
 
         # -- data ------------------------------------------------------------
         self.train_ds = ERA5Dataset(
@@ -108,13 +121,15 @@ class Trainer:
             time_interval=cfg.dataset.sampling_interval,
             preload=bool(cfg.training.validation_dataset.preload),
         )
-        bs = int(cfg.compute.batch_size)
+        # the global batch: compute.batch_size is a rank's, as the reference's
+        bs = int(cfg.compute.batch_size) * self.world
+        rows = distributed.local_batch_slice(bs, self.rank, self.world)
         self.train_loader = BatchLoader(
             self.train_ds, bs, shuffle=True, seed=int(cfg.init.get("seed") or 0),
-            drop_last=True, device=self.device,
+            drop_last=True, device=self.device, rows=rows,
         )
         self.val_loader = BatchLoader(self.val_ds, bs, shuffle=False, drop_last=True,
-                                      device=self.device)
+                                      device=self.device, rows=rows)
 
         # -- model/loss/optimizer ---------------------------------------------
         ds = self.train_ds
@@ -142,7 +157,11 @@ class Trainer:
             log.info("loading weights from %s", cfg.init.checkpoint_path)
             load_params(cfg.init.checkpoint_path, self.model)
 
-        self.optimizer = build_optimizer(cfg, self.model)
+        # over ranks: replicated from rank 0, or sharded by whole parameter
+        self.parallel = (distributed.DataParallel(self.model,
+                                                  fsdp=bool(cfg.compute.get("fsdp", False)))
+                         if distributed.is_initialized() else None)
+        self.optimizer = build_optimizer(cfg, self.model, self.parallel)
 
         report = None
         self.report_features = []
@@ -165,10 +184,12 @@ class Trainer:
                 "q_max": float(max(ds.q_max, ds.q_min * 2)),
                 "lat_weights": latitude_weights(ds.lat).astype(np.float32),
             }
-        self.eval_step = make_eval_step(self.model, self.val_loss_fn, cfg, report)
+        self.eval_step = make_eval_step(self.model, self.val_loss_fn, cfg, report,
+                                        parallel=self.parallel)
 
-        self.state = create_train_state(self.model, self.optimizer)
-        self.train_step = make_train_step(self.model, self.loss_fn, cfg, self.optimizer)
+        self.state = create_train_state(self.model, self.optimizer, self.parallel)
+        self.train_step = make_train_step(self.model, self.loss_fn, cfg, self.optimizer,
+                                          parallel=self.parallel)
 
         # -- schedule / checkpoints / logging ----------------------------------
         max_steps = int(cfg.training.max_steps)
@@ -189,8 +210,11 @@ class Trainer:
             log.info("resuming full state from %s", cfg.init.checkpoint_path)
             self.ckpt.restore(self.state, cfg.init.checkpoint_path)
 
-        self.metrics = MetricsLogger(self.log_dir)
-        save_run_snapshot(self.log_dir, cfg)
+        if self.is_main:
+            self.metrics = MetricsLogger(self.log_dir)
+            save_run_snapshot(self.log_dir, cfg)
+        else:
+            self.metrics = _NullMetrics()
         self.metrics.log(0, {"model/num_parameters": n_params})
 
         self.print_losses = bool(cfg.training.get("print_losses", False))
@@ -214,7 +238,7 @@ class Trainer:
         stop = False
 
         pbar = None
-        if cfg.training.progress_bar and not cfg.training.print_losses:
+        if cfg.training.progress_bar and not cfg.training.print_losses and self.is_main:
             try:  # step-global progress bar (reference utils/callbacks.py:8-128)
                 from tqdm import tqdm
 
@@ -272,7 +296,7 @@ class Trainer:
                                      refresh=False)
                     pbar.refresh()
                 if step % log_every == 0 or step == 1:
-                    bsz = batch["input"].shape[0]
+                    bsz = batch["input"].shape[0] * self.world  # the global batch
                     self.metrics.log(step, {
                         "train_loss": loss,
                         "lr": lr,
@@ -311,7 +335,7 @@ class Trainer:
                 stop = True
             log.info("epoch %d done in %.2fs val_loss=%.6f",
                      epoch, time.perf_counter() - epoch_t0, last_val)
-            if self.print_losses:
+            if self.print_losses and self.is_main:
                 print(
                     f"Epoch {epoch:4d} | Val Loss: {last_val:.6f} | "
                     f"LR: {self.schedule(int(self.state.step)):.2e} | "
@@ -327,13 +351,15 @@ class Trainer:
         limit = self.cfg.training.validation_dataset.validation_batches
         num_common = self.val_ds.num_common_features
         losses, reports = [], []
-        for i, batch in enumerate(self.val_loader):
-            if limit is not None and i >= int(limit):
-                break
-            out = self.eval_step(batch, num_common)
-            losses.append(float(out["loss"]))
-            if "report_rmse" in out:
-                reports.append(out["report_rmse"].float().cpu().numpy())
+        gathered = self.parallel.gathered() if self.parallel is not None else contextlib.nullcontext()
+        with gathered:
+            for i, batch in enumerate(self.val_loader):
+                if limit is not None and i >= int(limit):
+                    break
+                out = self.eval_step(batch, num_common)
+                losses.append(float(out["loss"]))
+                if "report_rmse" in out:
+                    reports.append(out["report_rmse"].float().cpu().numpy())
         if not losses:
             return float("nan")
         val = float(np.mean(losses))
@@ -349,7 +375,7 @@ class Trainer:
         """``torch.profiler`` trace window around the configured steps,
         written to ``<log_dir>/profile/trace.json``."""
         pcfg = self.cfg.training.get("profiler", None)
-        if not pcfg or not pcfg.get("enabled"):
+        if not pcfg or not pcfg.get("enabled") or not self.is_main:
             return
         start = int(pcfg.get("start_step", 10))
         num = int(pcfg.get("num_steps", 5))
@@ -377,7 +403,13 @@ class Trainer:
     def _log_deep_stats(self, step: int, m: dict) -> None:
         """Per-module grad/param stats + per-channel losses
         (reference trainer.py:520-617, 844-923)."""
-        stats = grad_statistics(m["grads"], self.model, self.optimizer)
+        grads, sum_across = m["grads"], None
+        if self.parallel is not None and self.parallel.fsdp:
+            # each rank's own parameters (and their optimizer moments), the
+            # sums added over the ranks
+            grads = {n: g for n, g in grads.items() if self.parallel.owns(n)}
+            sum_across = self.parallel.sum_
+        stats = grad_statistics(grads, self.model, self.optimizer, sum_across=sum_across)
         names = self.train_ds.dyn_output_features
         for key in ("channel_loss_weighted", "channel_loss_unweighted"):
             if key in m:

@@ -75,12 +75,20 @@ def muon_labels(model: nn.Module) -> dict[str, str]:
             for name, p in model.named_parameters()}
 
 
-def grad_norm(params) -> torch.Tensor:
-    """Global L2 norm of the parameters' gradients (a 0-d tensor, no host sync)."""
+def grad_norm(params, sum_across: Callable[[torch.Tensor], torch.Tensor] | None = None
+              ) -> torch.Tensor:
+    """Global L2 norm of the parameters' gradients (a 0-d tensor, no host sync).
+
+    With ``sum_across`` the parameters are one rank's shard: the squared
+    norm is summed over the ranks (in place) before the square root."""
     grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if sum_across is None:
+        if not grads:
+            return torch.zeros(())
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    sq = (torch.stack(torch._foreach_norm(grads)).square().sum() if grads
+          else torch.zeros((), device=params[0].device if params else None))
+    return sum_across(sq.float()).sqrt()
 
 
 class _MuonGroup:
@@ -105,18 +113,23 @@ class ParadisOptimizer:
 
     def __init__(self, model: nn.Module, *, name: str, lr: float, weight_decay: float,
                  betas: tuple[float, float], ns_steps: int = 5,
-                 ns_dtype: torch.dtype = torch.bfloat16, clip: float | None = None):
+                 ns_dtype: torch.dtype = torch.bfloat16, clip: float | None = None,
+                 names: set[str] | None = None,
+                 sum_across: Callable[[torch.Tensor], torch.Tensor] | None = None):
         if name not in ("adamw", "muon", "normuon"):
             raise ValueError(f"Optimizer {name} not supported: adamw|muon|normuon")
         self.name, self.lr, self.weight_decay, self.betas = name, float(lr), weight_decay, betas
         self.ns_steps, self.ns_dtype, self.clip = ns_steps, ns_dtype, clip
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        # a shard of the model (``names``: the parameters this rank owns) and
+        # how its squared gradient sum adds up over the ranks' shards
+        self.sum_across = sum_across
+        selected = [(n, p) for n, p in model.named_parameters()
+                    if p.requires_grad and (names is None or n in names)]
+        self.params = [p for _, p in selected]
         labels = muon_labels(model) if name != "adamw" else {}
         by_shape: dict[tuple, list] = {}
         adam, self.adamw_names = [], []
-        for pname, p in model.named_parameters():
-            if not p.requires_grad:
-                continue
+        for pname, p in selected:
             if labels.get(pname) == "muon":
                 by_shape.setdefault((p.shape[0], p.numel() // p.shape[0]), []).append((pname, p))
             else:
@@ -190,11 +203,71 @@ class ParadisOptimizer:
             plan.append((momentum[rows], None if nu is None else nu[rows]))
         return plan
 
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the gradients of every rank's parameters."""
+        return grad_norm(self.params, self.sum_across)
+
+    def param_states(self) -> dict:
+        """The optimizer's state by parameter name, whatever the grouping:
+        ``{"name", "lr", "params": {name: {"exp_avg", "exp_avg_sq", "step"}
+        (AdamW) or {"momentum" [out, fan_in], "nu" [out] or None} (Muon)}}``.
+        The layout of sharded checkpoints, which any split of the
+        parameters over ranks restores (``load_param_states``)."""
+        out = {}
+        if self.adamw is not None:
+            for pname, p in zip(self.adamw_names, self.adamw.param_groups[0]["params"]):
+                if p in self.adamw.state:
+                    out[pname] = dict(self.adamw.state[p])
+        for g in self.muon_groups:
+            for i, pname in enumerate(g.names):
+                out[pname] = {"momentum": g.momentum[i],
+                              "nu": None if g.nu is None else g.nu[i]}
+        return {"name": self.name, "lr": self.lr, "params": out}
+
+    def load_param_states(self, state: dict) -> None:
+        """Restore ``param_states()`` output (of any rank's shard, merged):
+        each of this optimizer's parameters takes its own entry.  Checked
+        before anything is copied."""
+        if state.get("name") != self.name:
+            raise ValueError(f"optimizer state of {state.get('name')!r} does not fit the "
+                             f"{self.name!r} optimizer")
+        entries = state["params"]
+        muon = {n: g for g in self.muon_groups for n in g.names}
+        missing = sorted(n for n in muon if n not in entries)
+        if missing:
+            raise ValueError(f"the optimizer state has no entry for {missing}")
+        for g in self.muon_groups:
+            for i, n in enumerate(g.names):
+                e = entries[n]
+                if (tuple(e["momentum"].shape) != tuple(g.momentum[i].shape)
+                        or (e["nu"] is None) != (g.nu is None)):
+                    raise ValueError(f"the Muon state of {n} does not fit")
+        sd = None
+        if self.adamw is not None:
+            sd = self.adamw.state_dict()
+            params = self.adamw.param_groups[0]["params"]
+            sd["state"] = {}
+            for i, (n, p) in enumerate(zip(self.adamw_names, params)):
+                if n in entries:
+                    e = entries[n]
+                    if tuple(e["exp_avg"].shape) != tuple(p.shape):
+                        raise ValueError(f"shape mismatch at AdamW exp_avg of {n}")
+                    sd["state"][i] = dict(e)
+        if sd is not None:
+            self.adamw.load_state_dict(sd)
+        with torch.no_grad():
+            for g in self.muon_groups:
+                for i, n in enumerate(g.names):
+                    g.momentum[i].copy_(entries[n]["momentum"])
+                    if g.nu is not None:
+                        g.nu[i].copy_(entries[n]["nu"])
+        self.lr = float(state["lr"])
+
     @torch.no_grad()
     def step(self) -> None:
         if self.clip is not None:
             grads = [p.grad for p in self.params if p.grad is not None]
-            norm = grad_norm(self.params)
+            norm = self.grad_norm()
             # optax.clip_by_global_norm: g / ‖g‖ · clip where ‖g‖ ≥ clip
             scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
             torch._foreach_mul_(grads, scale)
@@ -227,9 +300,28 @@ class ParadisOptimizer:
         torch._foreach_add_(group.params, upd, alpha=-self.lr)
 
 
-def build_optimizer(cfg, model: nn.Module) -> ParadisOptimizer:
+def param_states_of(state: dict) -> dict:
+    """``ParadisOptimizer.state_dict()`` output in ``param_states()``'s
+    layout (by parameter name), so another split of the parameters over
+    ranks can restore it."""
+    out = {}
+    if state["adamw"] is not None:
+        for i, pname in enumerate(state["adamw_names"]):
+            if i in state["adamw"]["state"]:
+                out[pname] = dict(state["adamw"]["state"][i])
+    for g in state["muon"]:
+        for i, pname in enumerate(g["names"]):
+            out[pname] = {"momentum": g["momentum"][i],
+                          "nu": None if g["nu"] is None else g["nu"][i]}
+    return {"name": state["name"], "lr": state["lr"], "params": out}
+
+
+def build_optimizer(cfg, model: nn.Module, parallel=None) -> ParadisOptimizer:
     """The optimizer ``training.optimizer`` names, at the configured learning
-    rate (driven per step by the host through ``set_learning_rate``)."""
+    rate (driven per step by the host through ``set_learning_rate``).
+
+    ``parallel`` (a sharded ``distributed.DataParallel``) restricts it to the
+    parameters this rank owns, their gradient norm summed over the ranks."""
     ocfg = cfg.training.optimizer
     clip = cfg.training.get("gradient_clip_val", None)
     ns_dtype = str(ocfg.get("ns_dtype", "bfloat16"))
@@ -240,7 +332,9 @@ def build_optimizer(cfg, model: nn.Module) -> ParadisOptimizer:
                             weight_decay=float(ocfg.weight_decay),
                             betas=(float(ocfg.beta1), float(ocfg.beta2)),
                             ns_steps=int(ocfg.get("ns_steps", 5)), ns_dtype=_DTYPES[ns_dtype],
-                            clip=None if clip is None else float(clip))
+                            clip=None if clip is None else float(clip),
+                            **({"names": parallel.owned_names(), "sum_across": parallel.sum_}
+                               if parallel is not None and parallel.fsdp else {}))
 
 
 def set_learning_rate(optimizer: ParadisOptimizer, lr: float) -> None:

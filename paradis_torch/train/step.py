@@ -29,23 +29,27 @@ from typing import Callable
 import torch
 from torch import nn
 
+from paradis_torch.distributed import DataParallel, all_reduce_mean
 from paradis_torch.forecast.rollout import autoregress_next_input
-from paradis_torch.train.optim import ParadisOptimizer, grad_norm
+from paradis_torch.train.optim import ParadisOptimizer
 from paradis_torch.utils.normalization import denormalize_humidity, denormalize_precipitation
 
 
 @dataclass
 class TrainState:
-    """The model (its parameters), the optimizer (its state) and the counters."""
+    """The model (its parameters), the optimizer (its state) and the counters;
+    over several ranks also how the parameters are laid out on them."""
 
     model: nn.Module
     optimizer: ParadisOptimizer
     step: int = 0          # optimizer steps taken
     micro_step: int = 0    # microbatches seen (for gradient accumulation)
+    parallel: DataParallel | None = None
 
 
-def create_train_state(model: nn.Module, optimizer: ParadisOptimizer) -> TrainState:
-    return TrainState(model=model, optimizer=optimizer)
+def create_train_state(model: nn.Module, optimizer: ParadisOptimizer,
+                       parallel: DataParallel | None = None) -> TrainState:
+    return TrainState(model=model, optimizer=optimizer, parallel=parallel)
 
 
 def _model_input(dyn, forcing_t, constants):
@@ -53,11 +57,21 @@ def _model_input(dyn, forcing_t, constants):
                      dim=-1)
 
 
-def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer) -> Callable:
+def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
+                    parallel: DataParallel | None = None) -> Callable:
     """Build ``train_step(state, batch, num_common_features) -> metrics``.
 
     The step updates ``state`` (the model's parameters, the optimizer's state
     and the counters) in place.
+
+    Over several ranks (``parallel``), ``batch`` holds this rank's rows of
+    the global batch.  Each parameter's gradient is averaged over the ranks
+    once an applied step, just before the optimizer (so clipping,
+    ``grad_norm`` and the logged raw gradients see the global batch's, as
+    under the JAX mesh), and ``loss`` / ``loss_per_step`` (and the logged
+    microstep gradients) are the ranks' mean, on the device.  Sharded
+    (``compute.fsdp``), the parameters are gathered before the window's first
+    forward and released after the update.
     """
     n_time = int(cfg.dataset.n_time_inputs)
     grad_accum = int(cfg.training.get("accumulate_grad_batches", 1))
@@ -74,7 +88,9 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer)
         scale = 1.0 / (S * grad_accum)
 
         if state.micro_step % grad_accum == 0:
-            optimizer.zero_grad()
+            model.zero_grad()  # every parameter's, the rank's own or not
+        if parallel is not None:
+            parallel.gather()
         before = ({n: p.grad.clone() for n, p in named if p.grad is not None}
                   if deep_stats else None)
         dyn = batch["input"]
@@ -95,19 +111,27 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer)
             dyn = dyn.detach()
 
         losses_all = torch.stack(losses)
+        if parallel is not None:
+            losses_all = all_reduce_mean(losses_all)
         metrics = {"loss": losses_all.mean(), "loss_per_step": losses_all}
         if deep_stats:
             # this microstep's raw gradients, read before the optimizer's
             # gradient clip scales ``.grad`` in place
-            metrics["grads"] = {n: (p.grad - before[n] if n in before else p.grad.clone())
-                                for n, p in named if p.grad is not None}
-            metrics["channel_loss_weighted"], metrics["channel_loss_unweighted"] = diag0
+            grads = {n: (p.grad - before[n] if n in before else p.grad.clone())
+                     for n, p in named if p.grad is not None}
+            metrics["grads"] = all_reduce_mean(grads) if parallel is not None else grads
+            diag0 = dict(zip(("channel_loss_weighted", "channel_loss_unweighted"), diag0))
+            metrics.update(all_reduce_mean(diag0) if parallel is not None else diag0)
         state.micro_step += 1
         applied = state.micro_step % grad_accum == 0
         if applied:
-            gnorm = grad_norm(optimizer.params)
+            if parallel is not None:
+                parallel.average_gradients()
+            gnorm = optimizer.grad_norm()
             optimizer.step()
             state.step += 1
+            if parallel is not None:
+                parallel.release()
         else:
             gnorm = torch.zeros((), device=losses_all.device)
         metrics.update(grad_norm=gnorm, applied=applied)
@@ -116,7 +140,8 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer)
     return train_step
 
 
-def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None) -> Callable:
+def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None,
+                   parallel: DataParallel | None = None) -> Callable:
     """Validation rollout: ``eval_step(batch, num_common_features) -> {loss[,
     report_rmse]}``.
 
@@ -125,7 +150,9 @@ def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None) -
     ``kinds`` ("zscore" | "humidity" | "precip" per channel) with ``q_min``
     and ``q_max``, so humidity and precipitation report channels use their
     physical inverse maps.  ``report_rmse`` is the latitude-weighted RMSE per
-    report channel in physical units, over all steps.
+    report channel in physical units, over all steps.  Over several ranks
+    (``parallel``) the loss and the mean squared errors are averaged over the
+    ranks before the square root: the global batch's, as under the JAX mesh.
     """
     n_time = int(cfg.dataset.n_time_inputs)
 
@@ -163,7 +190,11 @@ def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None) -
             dyn = autoregress_next_input(dyn, out, num_common_features, n_time)
         res = {"loss": torch.stack(losses).mean()}
         if report is not None:
-            res["report_rmse"] = torch.stack(mses).mean(dim=0).sqrt()
+            res["report_mse"] = torch.stack(mses).mean(dim=0)
+        if parallel is not None:
+            res = all_reduce_mean(res)
+        if report is not None:
+            res["report_rmse"] = res.pop("report_mse").sqrt()
         return res
 
     return eval_step

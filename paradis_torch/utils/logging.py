@@ -65,7 +65,8 @@ def optimizer_momentum(optimizer) -> dict[str, torch.Tensor] | None:
     return out
 
 
-def grad_statistics(grads: dict, model: torch.nn.Module, optimizer=None) -> dict:
+def grad_statistics(grads: dict, model: torch.nn.Module, optimizer=None,
+                    sum_across=None) -> dict:
     """Grad/param norms, their ratio and the grad-momentum cosine
     (reference trainer.py:844-923), bucketed as the JAX package buckets them:
     by the first key of each parameter's tree path.  That key is ``params``
@@ -73,8 +74,10 @@ def grad_statistics(grads: dict, model: torch.nn.Module, optimizer=None) -> dict
 
     ``grads`` maps parameter names to gradients (the train step's
     ``metrics["grads"]``).  Sums are float64; one host copy at the end.
+    ``sum_across`` (a sharded run): ``grads`` are this rank's parameters',
+    and the sums are added over the ranks before the norms.
     """
-    if not grads:
+    if not grads and sum_across is None:
         return {"grad/total": 0.0}
     named = dict(model.named_parameters())
     momentum = optimizer_momentum(optimizer) if optimizer is not None else None
@@ -88,7 +91,11 @@ def grad_statistics(grads: dict, model: torch.nn.Module, optimizer=None) -> dict
         else:
             terms += [g64.new_zeros(()), g64.new_zeros(())]
         rows.append(torch.stack(terms))
-    g2, p2, m2, gm = torch.stack(rows).sum(0).cpu().numpy()
+    dev = next(model.parameters()).device
+    sums = torch.stack(rows).sum(0) if rows else torch.zeros(4, dtype=torch.float64, device=dev)
+    if sum_across is not None:
+        sums = sum_across(sums)
+    g2, p2, m2, gm = sums.cpu().numpy()
 
     eps = 1e-12
     gn, pn = np.sqrt(g2), max(np.sqrt(p2), eps)

@@ -317,22 +317,27 @@ def test_cli_forecast_on_the_cpu_writes_a_store_evaluate_scores(store, params_fi
 
 @pytest.mark.parametrize("how", ["num_devices_flag", "num_devices_config", "mesh"])
 def test_a_second_device_raises_before_any_file_is_written(store, params_file, tmp_path, how):
+    """Without the launcher one process runs: ``--num-devices 2`` or
+    ``compute.num_devices=2`` does not fit the launched world and raises; a
+    spatial mesh axis is not ported and raises in ``run_forecast`` (the
+    two-rank forecast: ``tests/test_torch_multirank.py``)."""
     from paradis_torch.cli.forecast import main
 
     out = tmp_path / "fc.zarr"
     if how == "mesh":
-        cfg = torch_toy_config(store, **{"forecast.enable": True, "model.forecast_steps": 4})
+        cfg = torch_toy_config(store, **{"forecast.enable": True, "model.forecast_steps": 4,
+                                         "compute.lat_devices": 2})
         ds = ERA5Dataset(str(store), *WINDOW, forecast_steps=4, cfg=cfg, prediction_stage=True)
         model = Paradis.from_config(cfg, input_dim=ds.num_in_features,
                                     output_dim=ds.num_out_features, lat_deg=ds.lat,
                                     lon_deg=ds.lon, device="cpu")
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             run_forecast(model, ds, cfg, ZarrForecastWriter(cfg, ds, str(out)),
-                         BatchLoader(ds, 1, device="cpu"), mesh=object())
+                         BatchLoader(ds, 1, device="cpu"))
     else:
         extra = (["--num-devices", "2"] if how == "num_devices_flag"
                  else ["compute.num_devices=2"])
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="multi-GPU"):
             main(_cli_args(store, params_file, out, "--device", "cpu", *extra))
     assert not out.exists()
 

@@ -206,9 +206,14 @@ def test_restart_resumes_the_uninterrupted_run_bitwise(store, tmp_path):
                                       "compute.num_nodes=2",
                                       "compute.coordinator_address=localhost:1234"])
 def test_multi_device_settings_raise(store, tmp_path, override):
+    """In one process started without the launcher: more devices than were
+    launched, or a coordinator without a process group, do not fit the run
+    (``ValueError``); a spatial axis is not ported (``NotImplementedError``).
+    Multi-rank runs: ``tests/test_torch_multirank.py``."""
     key, value = override.split("=")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises((ValueError, NotImplementedError), match="multi-GPU"):
         _trainer(store, tmp_path, **{key: value})
+    assert not (tmp_path / "metrics.csv").exists()
 
 
 def test_trainer_defaults_to_the_card(store, tmp_path, monkeypatch):

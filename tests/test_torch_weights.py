@@ -142,6 +142,23 @@ def test_entry_points_raise_without_a_card_and_without_a_device(monkeypatch):
         export_cli.main(["--checkpoint-path", "params.pt", "--output-dir", "never",
                          "--device", "cuda"])
     assert not (ROOT / "never").exists()
+    from paradis_torch.tools import bench_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_model.main(["--device", "cuda"])
+    # a rank of a multi-rank cli.train, as the launcher starts it
+    from paradis_torch import distributed
+    from paradis_torch.cli import train as train_cli
+    from paradis_torch.config import load_config
+
+    for key, value in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["compute.num_devices=2", "training.log_dir=never"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize_distributed(load_config(), "cuda")
+    assert not distributed.is_initialized() and not (ROOT / "never").exists()
 
 
 _ISOLATION = r"""
@@ -245,6 +262,12 @@ with tempfile.TemporaryDirectory() as d:
     assert serving.rollout(batch["input"], batch["forcings"], batch["constants"]).shape == (
         1, 2, 8, 16, 12)
 assert "rollout" in bench_artifact.WAYS
+from paradis_torch import distributed
+from paradis_torch.tools import bench_model
+from paradis_torch.train import sharded_ckpt
+assert distributed.assign_owners([3, 2, 1], 2) == [0, 1, 1]
+assert bench_model.KERNELS == ("interp_fwd", "interp_bwd")
+assert sharded_ckpt.SHARD_DIR == "state_sharded"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
 assert not bad, bad
@@ -262,7 +285,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     CLI and scores the store, runs a rollout through the row-chunked path and
     the weight generation, imports the microbenchmark, exports a serving
     artifact, loads it and runs its forward and rollout, imports the artifact
-    benchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
+    benchmark, imports the ranks' module, the sharded checkpoints and the
+    model benchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c",
                           _ISOLATION.format(root=str(ROOT), tests=str(ROOT / "tests"))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -284,7 +308,8 @@ def test_no_jax_import_in_the_port_or_the_smoke_script():
                 "data/dataset.py", "data/pipeline.py", "data/datamodule.py",
                 "utils/logging.py", "utils/system.py", "train/loop.py",
                 "cli/preprocess.py", "cli/train.py", "forecast/export.py", "cli/export.py",
-                "tools/bench_artifact.py"):
+                "tools/bench_artifact.py", "distributed.py", "train/sharded_ckpt.py",
+                "tools/bench_model.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
