@@ -43,9 +43,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    bitwise equal to them where none does, zero where no tap row is kept;
 6. the serving path: the full-width flagship ``Paradis`` (latent 1024, 768
    velocity vectors, 8 layers, bicubic, fast departure trig) built from
-   ``configs/default.yaml`` with seeded random weights, runs a 40-step
-   forecast rollout at batch 1 in float32 and in bfloat16 through
-   ``make_forecast_rollout``.  Outputs must be finite, the kernel's launch
+   ``configs/default.yaml`` with seeded random weights
+   (``paradis_torch/tools/flagship.py``, which builds every config-built
+   model here), runs a 40-step forecast rollout at batch 1 in float32 and in
+   bfloat16 through ``make_forecast_rollout``, timed by
+   ``tools/bench_forecast``'s protocol (``FORECAST_CHAIN``: one timed
+   rollout).  Outputs must be finite, the kernel's launch
    count must rise by exactly 8 × 40 per rollout, and the first step must
    agree with the same model routed through the plain interpolation.  Then
    the same at 1.40625° (128 × 256) with ``compute.interp_band_rad=0.3``:
@@ -70,7 +73,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernel exactly 8 × S times, and the first step's parameter gradients must
    agree with those through the plain interpolation.  Then the same at
    1.40625° with ``compute.interp_band_rad=0.3`` and
-   ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps: each
+   ``compute.gradient_checkpointing=true`` for ``HR_TRAIN_STEPS`` steps, the
+   steps after the first timed as one chain by ``tools/bench_highres``'s
+   protocol: each
    step launches the banded forward 16 times (8, and 8 in the backward's
    replay), the banded backward 8 times and the unbanded kernels never.
    ``[train-remat]``: the same bf16 1.40625° steps under
@@ -91,6 +96,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    (within 4× the spread), the save and restore seconds and bytes, and a
    weights-only ``load_params`` of that checkpoint into a 5.625° model (U/V
    re-interpolated) that forecasts one finite step through #1.
+   The device profiles are ``tools/profile_step``'s ``device_profile`` and
+   the kernels' bounds ``tools/roofline``'s ``bound`` / ``bound_bwd``.
    ``[data]``: the native host library (required), synthetic WB2-shaped raw
    stores at 1.40625° and 5.625° (13 levels, 20 six-hourly times,
    Blosc-LZ4) built and preprocessed with the port's own pipeline (in the
@@ -106,6 +113,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    synchronizing operations a step), a resume from its own checkpoints for
    2 more, 8 steps at ``sync_every_n_steps=4`` with no synchronizing
    operation between sync points, and 10 steps at 5.625° through #1 and #2.
+   ``[profile-live]``: ``tools/profile_live`` on the 5.625° store
+   (``PROFILE_LIVE_ARGS``), the live loop's host phases, #1 and #2 8 times a
+   step; ``[ns-convergence]`` / ``[lq-convergence]``:
+   ``tools/ns_convergence`` (one seed) and ``tools/lq_convergence`` for
+   ``CONVERGENCE_STEPS`` steps of their toy model on their 8 × 16 store,
+   finite losses, #1 and #2 2 times a step of each run.
    ``[forecast-io]``: ``python -m paradis_torch.cli.forecast`` (its
    ``main``) on the card from synthetic WB2-shaped stores of 48 (5.625°, 2
    init times 36 h apart) and 42 (1.40625°, 1 init time, banded) six-hourly
@@ -129,20 +142,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``params.npz``, and ``paradis_torch.tools.bench_artifact --artifact``
    loads it (``load_artifact``) and runs 40 steps through the artifact's
    rollout, its forward a step at a time and the in-process rollout, in
-   alternating turns; at 1.40625° (``interp_band_rad=0.3``) the bench
-   exports the forward program alone and runs it a step at a time beside
-   the in-process rollout: #1 320 times a call of each way (8 a
+   alternating turns; at 1.40625° (``interp_band_rad=0.3``) the same
+   process exports the forward program alone, and the bench loads it and
+   runs it a step at a time beside the in-process rollout: #1 320 times a call of each way (8 a
    ``forward.pt2`` call), #5 80 (10 steps), each artifact way within ``EXPORT_TOL``
    of the largest output of the in-process rollout, the band plan in the
    1.40625° graph; export and load seconds, file bytes and steps/s of each
    way.  ``[bench-model]``: ``paradis_torch.tools.bench_model`` at its
-   defaults (the bf16 flagship at 5.625°, batch 1; ``xla`` and ``pallas``,
+   defaults but ``BENCH_MODEL_REPEATS`` (the bf16 flagship at 5.625°, batch
+   1; ``xla`` and ``pallas``,
    ``fwd`` and ``bwd``; chain slopes, the impls in turns): the four ms and
    the first calls' seconds; #1 launched 8 times a ``pallas`` ``fwd`` call,
    #1 and #2 8 times each a ``pallas`` ``bwd`` call, neither in the ``xla``
-   rows.  ``[multi-gpu]``: each run in its own processes through ``python
-   -m torch.distributed.run`` (this script's ``--worker`` mode: the entry
-   point's ``main``, then the rank's launch counts), on ``[data]``'s
+   rows.  ``[multi-gpu]``: the runs in three launches of ``python -m
+   torch.distributed.run`` (this script's ``--worker`` mode: for each run of
+   the launch the entry point's ``main``, then the rank's launch counts; the
+   runs of a launch share its process group): (a), (c) and (c)'s resume in
+   one launch, (b) beside it, then (d), on ``[data]``'s
    5.625° store, bf16, full width and depth: (a) ``cli.train`` on 2 ranks
    sharing the card over gloo, batch 1 a rank, against (b) 1 rank over
    NCCL (its initialisation and all-reduce on the card) with batch 2, the
@@ -155,8 +171,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    and a resume from it for ``MG_FSDP_K`` more, the losses within
    ``MG_LOSS_RTOL`` of each other; (d)
    ``cli.forecast --num-devices 2`` on 2 gloo ranks with ``[forecast-io]``'s
-   5.625° store and weights, beside (c)'s resumed run: every array equal to
-   that phase's one-process store.  Seconds and samples/s of each run.
+   5.625° store and weights, beside (c): every array equal to
+   that phase's one-process store.  Seconds and samples/s of each run (runs
+   side by side share the card and the host's cores).
+   ``[bench-pipeline]``, ``[roofline]``: what the process that prepared
+   ``[export]`` ran after ``cli.export`` (``host_tools``):
+   ``tools/bench_pipeline`` on [data]'s stores, the host path and with the
+   place stage to the card, and ``tools/roofline --cost`` at both grids (one
+   train step on meta tensors under ``FlopCounterMode``, the custom ops
+   counted, within 10% below to 1% above the analytic sum).
    The field, positions and cotangent of the 5.625° train steps' first-step
    backward launches are recorded (``recording_bwd``) and, in
    ``[kernel-bwd-train]``, the backward kernel is held on them against its
@@ -225,12 +248,19 @@ import sys
 import time
 from pathlib import Path
 
+from paradis_torch.tools.flagship import dims as flagship_dims
+from paradis_torch.tools.flagship import flagship, train_batch
+from paradis_torch.tools.profile_step import device_profile as profile_steps
+# the card's peaks (H100 SXM: HBM3, float32 outside the tensor cores, dense
+# bfloat16 on them) and the interpolation kernels' bounds
+from paradis_torch.tools.roofline import BF16_FLOPS as PEAK_BF16_FLOPS
+from paradis_torch.tools.roofline import FP32_FLOPS as PEAK_FP32_FLOPS
+from paradis_torch.tools.roofline import HBM_BW as PEAK_BYTES_PER_S
+from paradis_torch.tools.roofline import bound, bound_bwd
+
 STEPS = 40                 # the 10-day forecast protocol: 40 × 6 h
 PROFILE_STEPS = 3          # rollout steps traced by torch.profiler
 NLAT, NLON = 32, 64        # 5.625°
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bfloat16 on the tensor cores
 SPIN_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep cycles a second, at or above the SM clock
 MAX_QUEUE_S = 0.25          # the longest spin time_ms queues its calls behind
 # device ms a step that this script measured while the banded kernels staged
@@ -272,9 +302,14 @@ HR_OVERRIDES = [f"compute.interp_band_rad={BAND_RAD}"]
 # the 1.40625° train configuration: banded interpolation and full
 # recomputation of each physics layer in the backward
 HR_TRAIN_OVERRIDES = TRAIN_OVERRIDES + HR_OVERRIDES + ["compute.gradient_checkpointing=true"]
-HR_TRAIN_STEPS = 4         # train steps at 1.40625° (the first is the warm-up)
-HR_ROLLOUTS = 1            # timed 1.40625° rollouts a run (device-bound: they repeat to ~4%)
-LR_ROLLOUTS = 1            # timed 5.625° rollouts a run
+HR_TRAIN_STEPS = 4         # train steps at 1.40625°
+# of which the first ones each timed alone: the first 1.40625° run of the
+# process once took its one-time costs (~0.9 s) after its first step
+HR_WARM_STEPS = 2
+# the chain (short, long, repeats) of tools/bench_forecast's protocol in
+# [forecast]: one timed rollout a run (device-bound at 1.40625°: they repeat
+# to ~4%)
+FORECAST_CHAIN = (0, 1, 1)
 # the chunked 1.40625° runs: no band (chunking yields to a band plan), and
 # the train steps with full recomputation of each physics layer
 HR_CHUNK_OVERRIDES = ["compute.interp_band_rad=0"]
@@ -409,13 +444,21 @@ MG_LOSS_RTOL = 1e-4
 # of a grid are ready (the grid's latitudes in the name)
 FIO_READY = "fio_ready{}.json"
 DATA_READY = "data_ready.json"  # and when [data]'s are
+EXPORT_READY = "export_prep.json"  # and when [export]'s artifacts are written
+TOOLS_READY = "tools_ready.json"  # and when its host tools have run (host_tools)
+PIPELINE_SAMPLES = 8            # samples bench_pipeline times on [data]'s stores
+# the smoke's runs of the tools the JAX package has as scripts: profile_live
+# on [data]'s 5.625° store, ns_convergence and lq_convergence on their toy
+PROFILE_LIVE_ARGS = ["--steps", "10", "--batch", "1", "--sync", "4"]
+CONVERGENCE_STEPS = 4
 # the files of a one-epoch cli.train run (the JAX checkpoint layout)
 MG_RUN_FILES = ["checkpoints/best/best/params.pt", "checkpoints/best/best/state.pt",
                 "checkpoints/best/metric.json", "checkpoints/epochs/0001/params.pt",
                 "checkpoints/epochs/0001/state.pt", "checkpoints/last.json", "config.yaml",
                 "git_info.json", "metrics.csv"]
-# the microbenchmark's repeats here (its default is 5)
+# the microbenchmark's repeats here (its default is 5), and the model benchmark's (3)
 BENCH_INTERP_REPEATS = 2
+BENCH_MODEL_REPEATS = 2
 
 
 def log(msg: str) -> None:
@@ -477,19 +520,6 @@ def interp_inputs(B, R, C, V, H, W, dtype, seed):
     py = torch.where(wild, torch.rand(B, H, W, V, generator=g, device=dev) * (R + 5) - 3, py)
     px = torch.where(wild, torch.rand(B, H, W, V, generator=g, device=dev) * (C + 5) - 3, px)
     return field, py.contiguous(), px.contiguous()
-
-
-def bound(field, py, mode: str):
-    """(bound_ms, bound_by): each input read once and the output written once
-    over the memory rate, against the flops the taps need over the fp32 rate."""
-    n_out = py.numel()
-    nbytes = field.numel() * field.element_size() + 2 * n_out * 4 + n_out * field.element_size()
-    # per output: weights (4 cubic polynomials per axis, ~6 flops each, or 2
-    # linear), one FMA per tap, one FMA per tap row
-    flops = n_out * ((2 * 4 * 6 + 16 * 2 + 4 * 2) if mode == "bicubic" else (2 * 2 + 4 * 2 + 2 * 2))
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def _iters(py, kernel: int, plain: int) -> tuple[int, int]:
@@ -702,25 +732,6 @@ def check_rollout_kernel(dtype_name: str, captured: list) -> dict:
     res["bound_ms"] = sum(b for b, _ in bounds) / n
     res["bound_by"] = bounds[0][1]
     return res
-
-
-def bound_bwd(field, py, g, mode: str):
-    """(bound_ms, bound_by) of the backward: field, both positions and g read
-    once; d_field (field's dtype), d_py and d_px (fp32) written once; against
-    the flops it needs over the fp32 rate."""
-    n_out = py.numel()
-    f_bytes = field.numel() * field.element_size()
-    nbytes = 2 * f_bytes + 2 * n_out * 4 + n_out * g.element_size() + 2 * n_out * 4
-    # per output: weights and derivatives (4 cubic polynomials each, ~6-8
-    # flops, per axis; or 2 linear); per tap two FMAs (f·K, f·K′), one product
-    # g·K·K and its add into d_field; per tap row two FMAs and one product
-    if mode == "bicubic":
-        flops = n_out * (2 * 4 * (6 + 8) + 16 * 6 + 4 * 5 + 2)
-    else:
-        flops = n_out * (2 * 2 * (2 + 2) + 4 * 6 + 2 * 5 + 2)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
@@ -1203,52 +1214,6 @@ def check_bwd_mm(field_dtype: str, cdt_name: str, shape, timed: bool) -> dict:
     return res
 
 
-def flagship_dims(cfg) -> dict:
-    f = cfg.features
-    n_levels = len(f.pressure_levels)
-    n_common = len(f.input.atmospheric) * n_levels + len(f.input.surface)
-    n_out = len(f.output.atmospheric) * n_levels + len(f.output.surface)
-    n_time = int(cfg.dataset.n_time_inputs)
-    n_forcings, n_const = len(f.input.forcings), len(f.input.constants)
-    return dict(n_common=n_common, n_out=n_out, n_time=n_time, n_forcings=n_forcings,
-                n_const=n_const, input_dim=(n_common + n_forcings) * n_time + n_const)
-
-
-def profile_steps(run, n_steps: int, wall_per_step_s: float) -> dict:
-    """Device time per step, by kernel, from ``run()`` traced (it takes
-    ``n_steps`` steps).
-
-    The busy share divides it by the untraced wall time per step (the
-    tracer slows the host, not the device's work).  Annotated ranges on the
-    device timeline (the optimizers' ``record_function`` spans) are not
-    kernels and are left out.  ``None`` where the profiler saw no device
-    activity.  The device activity alone is traced: a trace with the host's
-    operators too gives the same kernels and device time at several times
-    the host-side cost (its events outnumber the kernels many times over).
-    """
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    if dev_us <= 0:
-        return {"device_ms_per_step": None, "busy_share": None}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    per_step_ms = dev_us / 1e3 / n_steps
-    return {
-        "device_ms_per_step": per_step_ms,
-        "device_launches_per_step": sum(e.count for e in kernels) / n_steps,
-        "busy_share": per_step_ms / (wall_per_step_s * 1e3),
-        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n_steps
-                                    for e in top},
-    }
-
-
 def part_seconds(marks: list) -> dict:
     """``{part: seconds}`` from ``[(name, perf_counter()), ...]``: each part
     from the mark before it (the host clock; where a run's time goes)."""
@@ -1353,30 +1318,21 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
 
     from paradis_torch.config import load_config
     from paradis_torch.forecast import make_forecast_rollout
-    from paradis_torch.model import Paradis
-    from paradis_torch.sphere.geometry import equiangular_lat_lon
+    from paradis_torch.tools import bench_forecast
+    from paradis_torch.tools.flagship import inputs
 
     marks = [("start", time.perf_counter())]
     dtype = getattr(torch, dtype_name)
     nlat, nlon = grid
     cfg = load_config(overrides=list(overrides))
     cfg.forecast.output_frequency = 1
-    d = flagship_dims(cfg)
-    lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
     torch.cuda.reset_peak_memory_stats()
-    model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
-                                lat_deg=lat, lon_deg=lon, dtype=dtype, device="cuda")
+    model, d = flagship(cfg, grid, "cuda", dtype=dtype)
     n_layers = len(model.layers)
     n_params = sum(p.numel() for p in model.parameters())
     banded = band_on(model, nlat, nlon)
     impl = model.layers[0].advection.impl   # "xla": the dense path, no kernel
-    rng = np.random.default_rng(0)
-    batch = {
-        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
-        "forcings": rng.normal(size=(1, STEPS, nlat, nlon, d["n_forcings"] * d["n_time"])),
-        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
-    }
-    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
+    batch = inputs(d, grid, STEPS, "cuda")
     rollout = make_forecast_rollout(model, cfg)
 
     warm = dict(batch, forcings=batch["forcings"][:, :2])
@@ -1386,14 +1342,19 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
     torch.cuda.synchronize()
     marks.append(("setup", time.perf_counter()))
 
-    times, counts, out = [], [], None
-    for _ in range(HR_ROLLOUTS if grid == HR else LR_ROLLOUTS):
-        reset_counts()
-        t0 = time.perf_counter()
-        out = rollout(batch, d["n_common"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        counts.append(launch_counts())
+    # tools/bench_forecast's protocol, FORECAST_CHAIN's timed rollouts (the
+    # last one's output kept)
+    last = {"out": None, "rollouts": 0}
+
+    def call():
+        last["out"] = rollout(batch, d["n_common"])
+        last["rollouts"] += 1
+
+    reset_counts()
+    bench = bench_forecast.time_rollout(call, "cuda", STEPS, *FORECAST_CHAIN)
+    out = last.pop("out")
+    counts = [[n / last["rollouts"] for n in launch_counts()]]
+    times = [bench["best_s"]]
     # the path's forward kernel once per layer and step
     expected = expected_launches(n_layers * STEPS if impl == "auto" else 0, 0, banded, chunk_rw)
     median = float(np.median(times))
@@ -1433,7 +1394,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
         "out_shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
         "out_std": float(out.std()), "launches_per_rollout": counts,
         "expected_launches": expected, "rollout_s": times,
-        "forecast_steps_per_s": STEPS / median,
+        "forecast_steps_per_s": STEPS / median, "bench_forecast": bench,
         "first_step_max_abs_diff_vs_plain": step_err, "first_step_max_abs": step_scale,
         "first_step_limit": STEP_TOL[dtype_name] * max(step_scale, 1e-3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1445,7 +1406,7 @@ def _run_forecast(dtype_name: str, card: str, grid, overrides, chunk_rw: int,
                                           for k, v in ab_times.items()}
     res["ok"] = (res["finite"] and all(c == expected for c in counts) and ab_ok
                  and plain_launches == [0] * 6
-                 and res["out_shape"] == [1, STEPS, nlat, nlon, d["n_out"]]
+                 and res["out_shape"] == [1, STEPS, nlat, nlon, d["output_dim"]]
                  and step_err <= res["first_step_limit"] and res["out_std"] > 0)
     del model
     torch.cuda.empty_cache()
@@ -1487,21 +1448,6 @@ def recording_bwd(store: list, n: int):
         ic.interp_bwd_cuda = kernel
 
 
-def train_batch(d: dict, S: int, nlat: int, nlon: int) -> dict:
-    """The one seeded random batch the train steps take, on the card."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(0)
-    batch = {
-        "input": rng.normal(size=(1, nlat, nlon, d["n_common"] * d["n_time"])),
-        "target": rng.normal(size=(1, S, nlat, nlon, d["n_out"])),
-        "forcings": rng.normal(size=(1, S, nlat, nlon, d["n_forcings"] * d["n_time"])),
-        "constants": rng.normal(size=(1, nlat, nlon, d["n_const"])),
-    }
-    return {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
-
-
 def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol,
                chunk_rw: int, capture: list | None) -> dict:
     import numpy as np
@@ -1509,8 +1455,8 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
 
     from paradis_torch.config import load_config
     from paradis_torch.data import dyn_output_features
-    from paradis_torch.model import Paradis
     from paradis_torch.sphere.geometry import equiangular_lat_lon
+    from paradis_torch.tools import bench_highres
     from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
                                      create_train_state, make_train_step, set_learning_rate)
 
@@ -1518,12 +1464,10 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     nlat, nlon = grid
     overrides = list(overrides) + ([] if dtype_name == "bfloat16" else ["compute.use_amp=false"])
     cfg = load_config(overrides=overrides)
-    d = flagship_dims(cfg)
     S = int(cfg.model.forecast_steps)
-    lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
+    lat, _ = equiangular_lat_lon(nlat, nlon, include_poles=False)
     torch.cuda.reset_peak_memory_stats()
-    model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
-                                lat_deg=lat, lon_deg=lon, device="cuda")
+    model, d = flagship(cfg, grid, "cuda", dtype=None)
     n_layers = len(model.layers)
     banded = band_on(model, nlat, nlon)
     loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
@@ -1532,7 +1476,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     lr_at, _ = build_schedule(cfg, int(cfg.training.max_steps))
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, loss_fn, cfg, optimizer)
-    batch = train_batch(d, S, nlat, nlon)
+    batch = train_batch(d, grid, S, "cuda")
     marks.append(("setup", time.perf_counter()))
 
     # the first step's parameter gradients, through the plain interpolation
@@ -1554,20 +1498,31 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
     del grads
     marks.append(("grad_check", time.perf_counter()))
 
-    losses, gnorms, counts, times = [], [], [], []
-    for i in range(steps):
+    # each step's metrics (on the card) and launches; at 5.625° each step
+    # ends in a synchronize and is timed alone, at 1.40625° the steps after
+    # HR_WARM_STEPS are timed by tools/bench_highres's protocol (one chain)
+    metrics, counts, times, bench = [], [], [], None
+
+    def step():
         set_learning_rate(optimizer, lr_at(state.step))
-        reset_counts()
+        before = launch_counts()
+        metrics.append(train_step(state, batch, d["n_common"]))
+        counts.append([a - b for a, b in zip(launch_counts(), before)])
+
+    for i in range(steps if grid != HR else HR_WARM_STEPS):
         t0 = time.perf_counter()
         with (recording_bwd(capture, n_layers * S) if capture is not None and i == 0
               else contextlib.nullcontext()):
-            metrics = train_step(state, batch, d["n_common"])
+            step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts.append(launch_counts())
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-    median = float(np.median(times[1:]))
+    if grid == HR:
+        bench = bench_highres.time_step(step, "cuda", 0, steps - HR_WARM_STEPS, 1)
+        times.append(bench["best_s"])
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    del metrics
+    median = float(np.median(times[1:] if grid != HR else times[-1:]))
     marks.append(("steps", time.perf_counter()))
 
     def traced():
@@ -1605,7 +1560,7 @@ def _run_train(dtype_name: str, card: str, grid, overrides, steps: int, grad_tol
         "layers": n_layers, "params": sum(p.numel() for p in model.parameters()),
         "losses": losses, "grad_norms": gnorms, "lrs": [lr_at(i) for i in range(steps)],
         "launches_per_step": counts, "expected_launches": expected, "step_s": times,
-        "train_steps_per_s": 1.0 / median,
+        "train_steps_per_s": 1.0 / median, "bench_highres": bench,
         "first_step_grad_launches": grad_launches,
         "first_step_grad_max_abs": grad_scale, "first_step_grad_rel_err_vs_plain": grad_err,
         "first_step_grad_limit": grad_tol[dtype_name],
@@ -1717,7 +1672,6 @@ def run_checkpoint(card: str) -> dict:
     from paradis_torch.config import load_config
     from paradis_torch.data import dyn_output_features
     from paradis_torch.forecast import make_forecast_rollout
-    from paradis_torch.model import Paradis
     from paradis_torch.ops.resize import linear_interp_matrix
     from paradis_torch.sphere.geometry import equiangular_lat_lon
     from paradis_torch.train import (WeightedLoss, build_optimizer, build_schedule,
@@ -1728,16 +1682,15 @@ def run_checkpoint(card: str) -> dict:
     d = flagship_dims(cfg)
     S = int(cfg.model.forecast_steps)
     seed = int(cfg.init.seed)
-    lat, lon = equiangular_lat_lon(*HR, include_poles=False)
+    lat, _ = equiangular_lat_lon(*HR, include_poles=False)
     loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features), nlon=HR[1],
                                        device="cuda")
     lr_at, _ = build_schedule(cfg, int(cfg.training.max_steps))
-    batch = train_batch(d, S, *HR)
+    batch = train_batch(d, HR, S, "cuda")
     accum = int(cfg.training.accumulate_grad_batches)
 
     def fresh(model_seed):
-        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
-                                    lat_deg=lat, lon_deg=lon, seed=model_seed, device="cuda")
+        model, _ = flagship(cfg, HR, "cuda", dtype=None, seed=model_seed)
         optimizer = build_optimizer(cfg, model)
         return create_train_state(model, optimizer), make_train_step(model, loss_fn, cfg,
                                                                      optimizer)
@@ -1814,10 +1767,7 @@ def run_checkpoint(card: str) -> dict:
         lr_cfg = load_config()
         lr_cfg.forecast.output_frequency = 1
         lr_d = flagship_dims(lr_cfg)
-        lat5, lon5 = equiangular_lat_lon(NLAT, NLON, include_poles=False)
-        small = Paradis.from_config(lr_cfg, input_dim=lr_d["input_dim"],
-                                    output_dim=lr_d["n_out"], lat_deg=lat5, lon_deg=lon5,
-                                    seed=seed + 2, device="cuda")
+        small, _ = flagship(lr_cfg, (NLAT, NLON), "cuda", dtype=None, seed=seed + 2)
         load_params(root, small)
         src = torch.load(root / "steps" / f"{half:08d}" / "state.pt", map_location="cpu",
                          weights_only=True)["params"]
@@ -1881,7 +1831,7 @@ def run_checkpoint(card: str) -> dict:
                  and all(a[:-1] == b[:-1] and (a[-1], b[-1]) in ((HR[0], NLAT), (HR[1], NLON))
                          for a, b in uv_shapes)
                  and uv_err <= 1e-6 and other_equal
-                 and fc_finite and fc_shape == [1, 1, NLAT, NLON, lr_d["n_out"]]
+                 and fc_finite and fc_shape == [1, 1, NLAT, NLON, lr_d["output_dim"]]
                  and fc_launches == fc_expected and fc_launches[0] == n_layers)
     return res
 
@@ -2057,8 +2007,9 @@ def prepare_export(root: Path, data_root: Path) -> int:
     paradis_torch.cli.export`` at its
     default ``--device cuda`` on them into ``ROOT/artifact32`` (host work:
     traced in the smoke's own process, after the earlier phases, the
-    rollout took 4.3× as long); its seconds and output into
-    ``ROOT/export_prep.json``."""
+    rollout took 4.3× as long), then the 1.40625° forward program
+    (``export_hr_forward``); their seconds and output into
+    ``ROOT/export_prep.json``; then ``host_tools``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     write_ready(data_root / DATA_READY, data_stores(data_root))
     for grid in ((NLAT, NLON), HR):
@@ -2071,10 +2022,58 @@ def prepare_export(root: Path, data_root: Path) -> int:
          f"dataset.root_dir={root / f'fio_store{NLAT}'}", f"model.forecast_steps={STEPS}",
          "forecast.output_frequency=1", *LOOP_DATES[:2]],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
-    (root / "export_prep.json").write_text(json.dumps(
-        {"cli_export_s": time.perf_counter() - t0, "returncode": done.returncode,
-         "stdout": done.stdout[-3000:], "stderr": done.stderr[-3000:]}))
+    record = {"cli_export_s": time.perf_counter() - t0, "returncode": done.returncode,
+              "stdout": done.stdout[-3000:], "stderr": done.stderr[-3000:]}
+    t0 = time.perf_counter()
+    export_hr_forward(root / f"artifact{HR[0]}")
+    record["hr_export_s"] = time.perf_counter() - t0
+    write_ready(root / EXPORT_READY, record)
+    write_ready(root / TOOLS_READY, host_tools(data_root))
     return 0
+
+
+def export_hr_forward(art: Path) -> None:
+    """[export]'s 1.40625° artifact: the seeded fp32 flagship with
+    ``compute.interp_band_rad`` (``EXPORT_HR_STEPS`` steps, every step
+    stored), its forward program alone (its scanned rollout at full width
+    would add ~80 s of trace; ``tests/test_torch_export_gpu.py`` runs a
+    banded ``rollout.pt2``), traced on the card into ``art``."""
+    import torch
+
+    from paradis_torch.config import load_config
+    from paradis_torch.forecast.export import save_artifact
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(overrides=["compute.use_amp=false", *HR_OVERRIDES,
+                                 f"model.forecast_steps={EXPORT_HR_STEPS}",
+                                 "forecast.output_frequency=1"])
+    model, d = flagship(cfg, HR, "cuda")
+    save_artifact(art, model, cfg, batch_size=1, nlat=HR[0], nlon=HR[1],
+                  input_dim=d["input_dim"], output_dim=d["output_dim"],
+                  n_common=d["n_common"], include_rollout=False)
+
+
+def host_tools(data_root: Path) -> dict:
+    """The host-bound tools, in ``prepare_export``'s process after the
+    export: ``tools/bench_pipeline`` on [data]'s stores (the host path, and
+    with the place stage to the card) and ``tools/roofline --cost`` at both
+    grids (one train step on meta tensors under ``FlopCounterMode``, no card
+    time), each with its seconds."""
+    from paradis_torch.tools import bench_pipeline, roofline
+
+    out = {}
+    for grid in (HR, (NLAT, NLON)):
+        t0 = time.perf_counter()
+        rec = bench_pipeline.main(["--store", str(data_root / f"store{grid[0]}"),
+                                   "--samples", str(PIPELINE_SAMPLES),
+                                   *[a for o in LOOP_DATES[:2] for a in ("--override", o)]])
+        out[f"bench_pipeline {grid[0]}x{grid[1]}"] = dict(rec, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rec = roofline.main(["--cost", "--device", "cpu", "--nlat", str(grid[0]),
+                             "--nlon", str(grid[1])])
+        out[f"roofline {grid[0]}x{grid[1]}"] = dict(rec, seconds=time.perf_counter() - t0)
+    return out
 
 
 def run_forecast_io(card: str, root: Path, prepared) -> dict:
@@ -2231,10 +2230,9 @@ def run_export(card: str, fio_root: Path, prepared) -> dict:
     (``load_artifact``) and runs three ways, 40 steps each, in alternating
     turns: the artifact's rollout, its forward a step at a time, and
     ``make_forecast_rollout`` in process with the artifact's weights.  At
-    1.40625° with ``compute.interp_band_rad`` the bench exports the seeded
-    flagship's forward program alone (its scanned rollout at full width
-    would add ~80 s of trace to the smoke; ``tests/test_torch_export_gpu.py``
-    runs a banded ``rollout.pt2``) and runs it a step at a time and in
+    1.40625° with ``compute.interp_band_rad`` the same process exported the
+    seeded flagship's forward program alone (``export_hr_forward``); the
+    bench loads it and runs it a step at a time and in
     process, ``EXPORT_HR_STEPS`` steps, each called once.  Gates: #1
     launched 8 × 40 times by one call of each way at 5.625° (8 a call of
     ``forward.pt2``), #5 8 × ``EXPORT_HR_STEPS`` at 1.40625°, and no other
@@ -2248,28 +2246,25 @@ def run_export(card: str, fio_root: Path, prepared) -> dict:
     res = {"ok": True}
     art = fio_root / "artifact32"
     t0 = time.perf_counter()
-    # cli.export ran in its own process, started before [train-remat]
-    # (prepare_export); what is left of it is the wait
-    prep_rc = prepared.wait(timeout=900)
+    # the artifacts were made in their own process, started before
+    # [train-remat] (prepare_export); what is left of it is the wait
+    done = wait_ready(fio_root / EXPORT_READY, prepared, "the artifacts")
     res["export_wait_s"] = time.perf_counter() - t0
-    done = json.loads((fio_root / "export_prep.json").read_text())
-    cli_s = done["cli_export_s"]
-    if (prep_rc != 0 or done["returncode"] != 0
-            or f"serving artifact written: {art}" not in done["stdout"]):
-        raise SystemExit(f"cli.export failed ({prep_rc}, {done['returncode']}): "
-                         f"{done['stderr']}")
+    if done["returncode"] != 0 or f"serving artifact written: {art}" not in done["stdout"]:
+        raise SystemExit(f"cli.export failed ({done['returncode']}): {done['stderr']}")
     for key, grid, steps, argv, kernel in (
             (f"{NLAT}x{NLON}", (NLAT, NLON), STEPS,
              ["--artifact", str(art), "--repeats", "1"], "interp_fwd"),
             (f"{HR[0]}x{HR[1]}", HR, EXPORT_HR_STEPS,
-             ["--grid", f"{HR[0]},{HR[1]}", "--steps", str(EXPORT_HR_STEPS), "--repeats", "0",
-              "--ways", "steploop,inprocess", "--override",
-              f"compute.interp_band_rad={BAND_RAD}"], "interp_band_fwd")):
+             ["--artifact", str(fio_root / f"artifact{HR[0]}"), "--repeats", "0",
+              "--ways", "steploop,inprocess"], "interp_band_fwd")):
         t0 = time.perf_counter()
         r = bench_artifact.main(argv)
         r["seconds"] = time.perf_counter() - t0
+        r["prepared_export_s"] = done["cli_export_s" if kernel == "interp_fwd" else
+                                      "hr_export_s"]
         if key == f"{NLAT}x{NLON}":
-            r["cli_export_s"] = cli_s
+            r["cli_export_s"] = done["cli_export_s"]
         want = {kernel: 8 * steps}
         r["ok"] = (all(n == want for n in r["launches_per_call"].values())
                    and all(gap <= EXPORT_TOL * r["max_abs_out"]
@@ -2298,12 +2293,9 @@ def check_advection_impls(card: str) -> dict:
     import torch
 
     from paradis_torch.config import load_config
-    from paradis_torch.model import Paradis
     from paradis_torch.ops.advection import AUTO_ALIASES
     from paradis_torch.ops.interp import interp_gather, interp_plain, tap_weights
-    from paradis_torch.sphere.geometry import equiangular_lat_lon
 
-    lat, lon = equiangular_lat_lon(NLAT, NLON, include_poles=False)
     rng = np.random.default_rng(0)
     x = None
     outs, counts, captured = {}, {}, []
@@ -2314,8 +2306,7 @@ def check_advection_impls(card: str) -> dict:
         if x is None:
             x = torch.tensor(rng.normal(size=(1, NLAT, NLON, d["input_dim"])),
                              dtype=torch.float32, device="cuda")
-        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["n_out"],
-                                    lat_deg=lat, lon_deg=lon, device="cuda")
+        model, _ = flagship(cfg, (NLAT, NLON), "cuda", dtype=None)
         reset_counts()
         with torch.inference_mode(), (recording_fwd(captured, len(model.layers))
                                       if impl == "auto" else contextlib.nullcontext()):
@@ -2688,13 +2679,13 @@ def run_train_loop(card: str, root: Path, stores: dict, device_rates: dict) -> d
 
 
 def run_bench_model(card: str) -> dict:
-    """``[bench-model]``: ``paradis_torch.tools.bench_model`` at its defaults,
-    in this process (the kernels already built).  Gates: every row's ms
+    """``[bench-model]``: ``paradis_torch.tools.bench_model`` at its defaults
+    but ``BENCH_MODEL_REPEATS``, in this process (the kernels already built).  Gates: every row's ms
     positive, #1 8 times a ``pallas`` ``fwd`` call, #1 and #2 8 times each a
     ``pallas`` ``bwd`` call, neither in an ``xla`` row."""
     from paradis_torch.tools import bench_model
 
-    res = bench_model.main([])
+    res = bench_model.main(["--repeats", str(BENCH_MODEL_REPEATS)])
     layers = 8
     want = {"xla_fwd": {"interp_fwd": 0, "interp_bwd": 0},
             "xla_bwd": {"interp_fwd": 0, "interp_bwd": 0},
@@ -2706,41 +2697,135 @@ def run_bench_model(card: str) -> dict:
     return res
 
 
+def run_profile_live(card: str, lr_store: str) -> dict:
+    """``[profile-live]``: ``tools/profile_live`` on [data]'s 5.625° store at
+    the flagship's full width (``PROFILE_LIVE_ARGS``).  Gates: its steps, the
+    JAX script's keys, a finite loss, #1 and #2 8 times a step."""
+    import numpy as np
+
+    from paradis_torch.tools import profile_live
+
+    reset_counts()
+    res = profile_live.main(["--store", lr_store, *PROFILE_LIVE_ARGS])
+    steps = int(PROFILE_LIVE_ARGS[PROFILE_LIVE_ARGS.index("--steps") + 1])
+    res.update(card=card, launches=launch_counts(),
+               expected_launches=expected_launches(8 * steps, 8 * steps, False, 0))
+    res["ok"] = (res["steps"] == steps - 1 and np.isfinite(res["loss"])
+                 and set(res["main_loop_ms_per_step"]) == {"queue_wait", "dispatch",
+                                                           "metric_fetch", "other"}
+                 and res["launches"] == res["expected_launches"])
+    return res
+
+
+def run_convergence(card: str, tool: str) -> dict:
+    """``[ns-convergence]`` / ``[lq-convergence]``: ``tools/ns_convergence``
+    (one seed) or ``tools/lq_convergence`` for ``CONVERGENCE_STEPS`` steps of
+    their toy model (2 layers) on their 8 × 16 store, on the card.  Gates:
+    finite losses, #1 and #2 2 times a step of each of the two runs."""
+    import numpy as np
+
+    from paradis_torch.tools import lq_convergence, ns_convergence
+
+    reset_counts()
+    t0 = time.perf_counter()
+    if tool == "ns":
+        recs = ns_convergence.main(["--steps", str(CONVERGENCE_STEPS), "--seeds", "1"])
+        res = dict(recs[0])
+        losses = res["losses_5"] + res["losses_3"]
+    else:
+        res = lq_convergence.main(["--steps", str(CONVERGENCE_STEPS)])
+        losses = res["losses_a"] + res["losses_b"]
+    n = 2 * 2 * CONVERGENCE_STEPS
+    res.update(card=card, seconds=time.perf_counter() - t0, launches=launch_counts(),
+               expected_launches=expected_launches(n, n, False, 0))
+    res["ok"] = (len(losses) == 2 * CONVERGENCE_STEPS and bool(np.isfinite(losses).all())
+                 and res["launches"] == res["expected_launches"])
+    return res
+
+
+def report_host_tools(tools: dict, card: str) -> None:
+    """``[bench-pipeline]`` and ``[roofline]``: the records ``host_tools``
+    made; fails on a failed gate: bench_pipeline's samples through both
+    paths, roofline's custom ops counted (not 0) and its FlopCounterMode
+    total within 10% below to 1% above the analytic sum."""
+    for key, rec in tools.items():
+        if key.startswith("bench_pipeline"):
+            ok = (rec["host"]["samples"] > 0 and rec["with_place"] is not None
+                  and rec["with_place"]["samples"] == rec["host"]["samples"])
+            log(f"[bench-pipeline] {json.dumps(rec)}")
+            log(f"[bench-pipeline] {key.split()[1]}: host path {rec['host']['samples_per_sec']:.2f} "
+                f"samples/s, with place to the card {rec['with_place']['samples_per_sec']:.2f} "
+                f"({rec['host']['samples']} samples, [data]'s store) on {rec['card']}")
+        else:
+            cost = rec["cost"]
+            ratio = cost["flops"] / rec["analytic_flops"]
+            ok = (cost["flops_by_op"].get("paradis.interp", 0) > 0
+                  and cost["flops_by_op"].get("paradis.interp_bwd", 0) > 0
+                  and 0.9 <= ratio <= 1.01)
+            log(f"[roofline] {json.dumps(rec, default=float)}")
+            log(f"[roofline] {key.split()[1]}: FlopCounterMode {cost['flops'] / 1e9:.1f} GFLOP "
+                f"a train step against the analytic {rec['analytic_flops'] / 1e9:.1f} "
+                f"({ratio:.4f}), eager operators' bytes {cost['bytes'] / 2 ** 30:.2f} GiB; "
+                + ", ".join(f"{k} {c['ms']:.4g} ms ({c['bound_by']})"
+                            for k, c in rec["components"].items())
+                + f" at the peaks of {card}")
+        if not ok:
+            raise SystemExit(f"{key} failed its checks: {rec}")
+
+
 def rank_worker(argv: list[str]) -> int:
-    """``--worker {train,forecast} OUT ARGS...``: one rank of a run that
-    ``torch.distributed.run`` started: the entry point's ``main(ARGS)``, then
-    the rank's launch counts and the entry point's result into
-    ``OUT.rank<RANK>.json``."""
+    """``--worker {train,forecast} OUT ARGS... [--then OUT ARGS...]``: one rank
+    of a launch that ``torch.distributed.run`` started: for each run in turn
+    the entry point's ``main(ARGS)``, then the rank's launch counts of that
+    run and the entry point's result into ``OUT.rank<RANK>.json``.  The runs
+    of one launch share its process group: it is shut down after the last
+    (a launch's process start, ~16 s, is paid once)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    kind, out, args = argv[0], Path(argv[1]), argv[2:]
+    from paradis_torch import distributed
+
+    kind, runs = argv[0], []
+    for arg in argv[1:]:
+        if arg == "--then" or not runs:
+            runs.append([] if arg == "--then" else [arg])
+        else:
+            runs[-1].append(arg)
     if kind == "train":
         from paradis_torch.cli import train as cli
     else:
         from paradis_torch.cli import forecast as cli
-    t0 = time.perf_counter()
-    result = cli.main(args)
-    rank = int(os.environ.get("RANK", "0"))
-    out.with_name(f"{out.name}.rank{rank}.json").write_text(json.dumps(
-        {"rank": rank, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
-         "result": result}, default=float))
+    shutdown = distributed.shutdown_distributed
+    for i, (out, *args) in enumerate(runs):
+        distributed.shutdown_distributed = shutdown if i == len(runs) - 1 else (lambda: None)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli.main(args)
+        rank = int(os.environ.get("RANK", "0"))
+        out = Path(out)
+        out.with_name(f"{out.name}.rank{rank}.json").write_text(json.dumps(
+            {"rank": rank, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+             "result": result}, default=float))
     return 0
 
 
-def torchrun(n: int, kind: str, out: Path, args: list[str], timeout: int = 300):
+def torchrun(n: int, kind: str, runs: list, timeout: int = 400):
     """Start ``python -m torch.distributed.run --nproc-per-node n`` of this
-    script's ``--worker`` mode; returns the function that waits for it and
-    returns the wall seconds and each rank's record.  A rank's failure fails
+    script's ``--worker`` mode for ``runs``, ``[(OUT, ARGS), ...]`` in turn;
+    returns the function that waits for it and returns the launch's wall
+    seconds and, for each run, each rank's record.  A rank's failure fails
     the phase (the launcher then stops the others and exits non-zero)."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
+    argv = []
+    for i, (out, args) in enumerate(runs):
+        argv += (["--then"] if i else []) + [str(out), *args]
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
          "--master-addr", "127.0.0.1", "--master-port", str(port), str(Path(__file__).resolve()),
-         "--worker", kind, str(out), *args],
+         "--worker", kind, *argv],
         cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
 
@@ -2755,16 +2840,17 @@ def torchrun(n: int, kind: str, out: Path, args: list[str], timeout: int = 300):
         if proc.returncode != 0:
             raise SystemExit(f"{n}-rank {kind} failed ({proc.returncode}): "
                              f"{stdout[-2000:]}\n{stderr[-4000:]}")
-        ranks = [json.loads(out.with_name(f"{out.name}.rank{r}.json").read_text())
-                 for r in range(n)]
-        return {"seconds": seconds, "ranks": ranks}
+        return {"seconds": seconds,
+                "runs": [[json.loads(out.with_name(f"{out.name}.rank{r}.json").read_text())
+                          for r in range(n)] for out, _ in runs]}
 
     return wait
 
 
 def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict:
-    """``[multi-gpu]``: the multi-rank paths on the one card, each run in its
-    own processes (see the module docstring, (a)-(d))."""
+    """``[multi-gpu]``: the multi-rank paths on the one card, in three
+    launches (see the module docstring, (a)-(d)): (a), (c) and (c)'s resume
+    in one launch of 2 gloo ranks; beside it (b), then (d)."""
     import numpy as np
 
     from paradis_torch.data import zarrlite
@@ -2773,16 +2859,15 @@ def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict
     common = ["--device", "cuda", f"dataset.root_dir={lr_store}", *LOOP_DATES,
               *TRAIN_OVERRIDES, "training.log_every_n_steps=1", f"training.log_dir={root}"]
 
-    def train(name: str, n: int, args: list[str], also=None) -> dict:
-        """A run of ``cli.train`` on ``n`` ranks (with ``also``, the waiter of
-        another launch, running beside it)."""
-        wait = torchrun(n, "train", root / name, common + [f"training.experiment_name={name}",
-                                                           *args])
-        try:
-            run = wait()
-        finally:
-            beside = also() if also is not None else None
-        run["beside"] = beside
+    def train_runs(runs: list) -> list:
+        return [(root / name, common + [f"training.experiment_name={name}", *args])
+                for name, args in runs]
+
+    def collect(name: str, ranks: list) -> dict:
+        """A run's ranks' records, its metrics and files, and whether each
+        rank launched #1 and #2 8 times a step (and #1 8 times a
+        validation batch, its rows of it)."""
+        run = {"ranks": ranks, "seconds": max(r["seconds"] for r in ranks)}
         exp = root / name
         m = read_metrics(exp / "metrics.csv")
         steps = sorted(m["train_loss"])
@@ -2792,21 +2877,52 @@ def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict
                    samples_per_s=float(np.median([m["samples_per_sec"][s] for s in steps[1:]])),
                    files=sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file()))
         taken = len(steps)
-        # each rank: 8 forward and 8 backward launches a step, 8 forward a
-        # validation batch (its rows of it)
         run["launches_ok"] = all(r["launches"] == [8 * (taken + n_val), 8 * taken, 0, 0, 0, 0]
-                                 for r in run["ranks"])
+                                 for r in ranks)
         return run
 
     def close(a: list, b: list) -> float:
         return float(max(abs(x - y) / abs(y) for x, y in zip(a, b)))
 
     steps = f"training.max_steps={MG_STEPS}"
-    # (a) two gloo ranks on the one card, batch 1 a rank; (b) one NCCL rank, batch 2
-    dp = train("dp2", 2, [steps, "compute.num_devices=2", "compute.dist_backend=gloo",
-                          "compute.batch_size=1"])
-    one = train("nccl1", 1, [steps, "compute.dist_backend=nccl", "compute.batch_size=2",
-                             "training.checkpointing.enabled=false"])
+    # (c) FSDP on 2 samples (one global batch an epoch): 2k steps saving
+    # after k, and a resume from it for k more (FSDP against the replicated
+    # ranks on the same samples: tests/test_torch_multirank.py)
+    k = MG_FSDP_K
+    two = [f"training.max_steps={2 * k}", "compute.num_devices=2",
+           "compute.dist_backend=gloo", "compute.fsdp=true",
+           "training.dataset.end_date=2000-01-01T06:00:00",
+           f"training.checkpointing.step_every={k}"]
+    step_k = root / "fsdp" / "checkpoints" / "steps" / f"{k:08d}"
+    # (a) two gloo ranks on the one card, batch 1 a rank, then (c) and its resume
+    wait_a = torchrun(2, "train", train_runs([
+        ("dp2", [steps, "compute.num_devices=2", "compute.dist_backend=gloo",
+                 "compute.batch_size=1"]),
+        ("fsdp", two),
+        ("fsdp_resumed", [*two, "init.restart=true", f"init.checkpoint_path={step_k}"])]))
+    # (b) one NCCL rank with batch 2, beside (a)
+    wait_b = torchrun(1, "train", train_runs([
+        ("nccl1", [steps, "compute.dist_backend=nccl", "compute.batch_size=2",
+                   "training.checkpointing.enabled=false"])]))
+    out = root / "fc2.zarr"
+    try:
+        b = wait_b()
+        # (d) the forecast CLI on two gloo ranks against [forecast-io]'s
+        # one-process store, beside the rest of (a) and (c)
+        d = torchrun(2, "forecast", [(root / "fc2", [
+            "--checkpoint-path", str(fio_root / f"fio_params{NLAT}.pt"), "--output-file",
+            str(out), "--forecast-steps", str(STEPS), "--sampling-interval", FIO_INTERVAL,
+            "--start-date", FIO_START, "--end-date", FIO_GRIDS[(NLAT, NLON)][1],
+            "--batch-size", "1", "--write-every-n", str(FIO_WRITE_EVERY), "--device", "cuda",
+            "--num-devices", "2", f"dataset.root_dir={fio_root / f'fio_store{NLAT}'}",
+            "compute.dist_backend=gloo"])])()
+    finally:
+        a = wait_a()
+    dp, full, resumed = (collect(name, ranks) for name, ranks in
+                         zip(("dp2", "fsdp", "fsdp_resumed"), a["runs"]))
+    one = collect("nccl1", b["runs"][0])
+    res["launch_seconds"] = {"dp2, fsdp, fsdp_resumed": a["seconds"], "nccl1": b["seconds"],
+                             "fc2": d["seconds"]}
     dp["loss_rel_gap"] = close(dp["losses"], one["losses"])
     # what one process writes in one epoch: only rank 0 wrote
     dp["files_as_one_process"] = dp["files"] == MG_RUN_FILES
@@ -2815,29 +2931,6 @@ def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict
                  == list(range(1, MG_STEPS + 1)) and dp["loss_rel_gap"] <= MG_LOSS_RTOL
                  and dp["files_as_one_process"])
 
-    # (c) FSDP on two gloo ranks, on 2 samples (one global batch an epoch):
-    # 2k steps saving after k, and a resume from it for k more (FSDP against
-    # the replicated ranks on the same samples: tests/test_torch_multirank.py)
-    k = MG_FSDP_K
-    two = [f"training.max_steps={2 * k}", "compute.num_devices=2",
-           "compute.dist_backend=gloo", "compute.fsdp=true",
-           "training.dataset.end_date=2000-01-01T06:00:00",
-           f"training.checkpointing.step_every={k}"]
-    full = train("fsdp", 2, two)
-    # (d) the forecast CLI on two gloo ranks against [forecast-io]'s one-process
-    # store, beside (c)'s resumed run (the card's third and fourth processes)
-    out = root / "fc2.zarr"
-    fc_wait = torchrun(2, "forecast", root / "fc2", [
-        "--checkpoint-path", str(fio_root / f"fio_params{NLAT}.pt"), "--output-file", str(out),
-        "--forecast-steps", str(STEPS), "--sampling-interval", FIO_INTERVAL,
-        "--start-date", FIO_START, "--end-date", FIO_GRIDS[(NLAT, NLON)][1],
-        "--batch-size", "1", "--write-every-n", str(FIO_WRITE_EVERY), "--device", "cuda",
-        "--num-devices", "2", f"dataset.root_dir={fio_root / f'fio_store{NLAT}'}",
-        "compute.dist_backend=gloo"])
-    step_k = root / "fsdp" / "checkpoints" / "steps" / f"{k:08d}"
-    resumed = train("fsdp_resumed", 2, [*two, "init.restart=true",
-                                        f"init.checkpoint_path={step_k}"], also=fc_wait)
-    fc = resumed.pop("beside")
     shards = sorted(p.name for p in (step_k / "state_sharded").iterdir())
     resumed["loss_rel_gap"] = close(resumed["losses"], full["losses"][k:])
     res["fsdp"], res["fsdp_resumed"] = full, resumed
@@ -2847,18 +2940,19 @@ def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict
                                and resumed["steps"] == list(range(k + 1, 2 * k + 1))
                                and resumed["loss_rel_gap"] <= MG_LOSS_RTOL)
 
-    a, b = zarrlite.open_store(fio_root / f"fio_forecast{NLAT}.zarr"), zarrlite.open_store(out)
-    unequal = sorted(name for name in a.arrays()
-                     if not np.array_equal(a[name][...], b[name][...], equal_nan=True))
+    fa, fb = zarrlite.open_store(fio_root / f"fio_forecast{NLAT}.zarr"), zarrlite.open_store(out)
+    unequal = sorted(name for name in fa.arrays()
+                     if not np.array_equal(fa[name][...], fb[name][...], equal_nan=True))
     inits = FIO_GRIDS[(NLAT, NLON)][2]
-    fc.update(unequal_arrays=unequal, arrays=len(list(a.arrays())),
-              total=fc["ranks"][0]["result"]["total"],
-              launches=[r["launches"] for r in fc["ranks"]])
+    ranks = d["runs"][0]
+    fc = {"seconds": d["seconds"], "ranks": ranks, "unequal_arrays": unequal,
+          "arrays": len(list(fa.arrays())), "total": ranks[0]["result"]["total"],
+          "launches": [r["launches"] for r in ranks]}
     res["forecast"] = fc
-    res["ok"] = res["ok"] and (not unequal and sorted(a.arrays()) == sorted(b.arrays())
+    res["ok"] = res["ok"] and (not unequal and sorted(fa.arrays()) == sorted(fb.arrays())
                                and fc["total"]["samples"] == inits
                                and all(r["launches"] == [8 * STEPS, 0, 0, 0, 0, 0]
-                                       for r in fc["ranks"]))
+                                       for r in ranks))
     return res
 
 
@@ -2884,6 +2978,9 @@ def report_multi_gpu(mg: dict, card: str) -> None:
         log(f"[multi-gpu] {key}: {len(r['ranks'])} rank(s), {r['seconds']:.1f} s, losses "
             f"{[round(v, 6) for v in r['losses']]}, {r['samples_per_s']:.3f} samples/s, "
             f"launches a rank {[x['launches'][:2] for x in r['ranks']]} on {card}")
+    log(f"[multi-gpu] launches: " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in mg["launch_seconds"].items())
+        + f" on {card}")
     log(f"[multi-gpu] loss gaps (limit {MG_LOSS_RTOL}): gloo x2 against nccl x1 "
         f"{mg['dp']['loss_rel_gap']:.3g}, fsdp resumed {mg['fsdp_resumed']['loss_rel_gap']:.3g}; "
         f"forecast x2 {mg['forecast']['seconds']:.1f} s, "
@@ -3094,6 +3191,14 @@ def main() -> int:
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version or the row-chunked kernel on "
                          f"the rollout's inputs: {bad}")
+    # tools/bench_forecast's rollouts: #1 (#5 at 1.40625°) 320 times a rollout
+    bad = {f"{r['grid']} {r['dtype']}": r["bench_forecast"]["launches_per_call"]
+           for store, kernel in ((runs, "interp_fwd"), (hr_runs, "interp_band_fwd"))
+           for r in store.values()
+           if r["bench_forecast"]["launches_per_call"] != {kernel: 8 * STEPS}}
+    if bad:
+        raise SystemExit(f"bench_forecast's rollouts launched other kernels than 320 times the "
+                         f"forward: {bad}")
     phase_done("[forecast], [kernel-rollout]")
     torch.cuda.empty_cache()
 
@@ -3135,6 +3240,15 @@ def main() -> int:
                 f"train steps/s = samples/s (batch 1, S = {res['S']}, {res['optimizer']}, "
                 f"banded {res['banded']}, checkpointing {res['gradient_checkpointing']}) "
                 f"on {card}")
+
+    # tools/bench_highres's steps: #5 16 times a step (8, and 8 in the
+    # backward's replay) and #6 8 times
+    bad = {k: r["bench_highres"]["launches_per_call"] for k, r in hr_trains.items()
+           if r["bench_highres"]["launches_per_call"] != {"interp_band_fwd": 16,
+                                                          "interp_band_bwd": 8}}
+    if bad:
+        raise SystemExit(f"bench_highres's steps launched other than #5 16 and #6 8 times a "
+                         f"step: {bad}")
 
     phase_done("[train]")
 
@@ -3260,6 +3374,26 @@ def main() -> int:
 
     phase_done("[data], [train-loop]")
 
+    # tools of scripts/ that run briefly here: the live loop's host phases
+    # at full width, and the two convergence A/Bs on their toy model
+    live = run_profile_live(card, data["stores"][f"{NLAT}x{NLON}"]["path"])
+    log("[profile-live] " + json.dumps(live))
+    if not live["ok"]:
+        raise SystemExit(f"profile_live failed its checks: {live}")
+    log(f"[profile-live] {NLAT}x{NLON} bfloat16: {live['samples_per_sec']:.3f} samples/s, "
+        f"{live['wall_ms_per_step']:.1f} ms a step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in live["main_loop_ms_per_step"].items())
+        + f" ms; assemble {live['overlapped_threads_ms']['assemble_per_sample']:.1f} ms a "
+        f"sample on {card}")
+    phase_done("[profile-live]")
+    for tool in ("ns", "lq"):
+        conv = run_convergence(card, tool)
+        log(f"[{tool}-convergence] " + json.dumps(conv))
+        if not conv["ok"]:
+            raise SystemExit(f"{tool}_convergence failed its checks: {conv}")
+        phase_done(f"[{tool}-convergence]")
+    torch.cuda.empty_cache()
+
     # forecast I/O: the forecast CLI writes a WB2 store from the card, scored
     fio_t0 = time.perf_counter()
     # kept to [export], which exports the 5.625° checkpoint on the 5.625° store
@@ -3313,13 +3447,19 @@ def main() -> int:
     mg_dir = tempfile.TemporaryDirectory(prefix="paradis-mg-")
     mg = run_multi_gpu(card, Path(data["stores"][f"{NLAT}x{NLON}"]["path"]),
                        Path(fio_dir.name), Path(mg_dir.name))
-    mg_dir.cleanup()
-    fio_dir.cleanup()
-    data_tmp.cleanup()
     report_multi_gpu(mg, card)
     torch.cuda.empty_cache()
 
     phase_done("[multi-gpu]")
+
+    # bench_pipeline and roofline --cost, run by the preparing process
+    report_host_tools(wait_ready(Path(fio_dir.name) / TOOLS_READY, prep, "its host tools"),
+                      card)
+    mg_dir.cleanup()
+    fio_dir.cleanup()
+    data_tmp.cleanup()
+
+    phase_done("[bench-pipeline], [roofline]")
 
     # the unbanded backward kernel on the 5.625° train steps' own first-step inputs
     train_bwd_checks = [check_train_bwd_kernel(dtype_name, first_bwd.pop(dtype_name))
@@ -3476,6 +3616,28 @@ def main() -> int:
                 bench_mod["rows"]["pallas_bwd"]["launches_per_call"]["interp_bwd"])
         if k["name"] == "interp_fwd[bicubic,float32]":
             k["forecast_launches_per_rank"] = mg["forecast"]["launches"]
+    # and a call of the tools: a bench_forecast rollout, a bench_highres step,
+    # the profile_live run (PROFILE_LIVE_ARGS)
+    tool_launches = {
+        "interp_fwd[bicubic,float32]": ("bench_forecast_launches_per_rollout",
+                                        runs["float32"]["bench_forecast"], "interp_fwd"),
+        "interp_band_fwd[bicubic,float32]": ("bench_forecast_launches_per_rollout",
+                                             hr_runs["float32"]["bench_forecast"],
+                                             "interp_band_fwd"),
+        "interp_band_fwd[bicubic,bfloat16]": ("bench_highres_launches_per_step",
+                                              hr_trains["bfloat16"]["bench_highres"],
+                                              "interp_band_fwd"),
+        "interp_band_bwd[bicubic,bfloat16]": ("bench_highres_launches_per_step",
+                                              hr_trains["bfloat16"]["bench_highres"],
+                                              "interp_band_bwd")}
+    for k in kernels:
+        if k["name"] in tool_launches:
+            key, timed, kernel = tool_launches[k["name"]]
+            k[key] = timed["launches_per_call"][kernel]
+        if k["name"] == "interp_fwd[bicubic,bfloat16]":
+            k["profile_live_launches"] = live["launches"][0]
+        if k["name"] == "interp_bwd[bicubic,bfloat16]":
+            k["profile_live_launches"] = live["launches"][1]
     for c in rollout_checks:
         kernels.append({"name": f"interp_fwd[{c['mode']},{c['dtype']},rollout]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,

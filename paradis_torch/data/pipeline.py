@@ -23,7 +23,8 @@ allocated.  On the CPU the place stage wraps the arrays without a copy
 
 A worker's exception is raised in the consumer.  When the consumer stops
 early (a validation limit) the workers see the stop flag within
-``_POLL_S`` and end, dropping what they hold.
+``_POLL_S`` and end, dropping what they hold; the iteration ends when they
+have (a worker finishes the sample it is assembling first).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from paradis_torch import resolve_device
 
 _POLL_S = 0.1  # how often a blocked worker looks at the stop flag
+_JOIN_S = 60.0  # the longest the consumer waits for a worker's sample in flight
 
 
 def collate(samples: list[tuple]) -> dict:
@@ -174,8 +176,10 @@ class BatchLoader:
             except Exception as e:
                 _put(q_dev, e, stop)
 
-        threading.Thread(target=assemble_worker, daemon=True).start()
-        threading.Thread(target=place_worker, daemon=True).start()
+        workers = [threading.Thread(target=assemble_worker, daemon=True),
+                   threading.Thread(target=place_worker, daemon=True)]
+        for w in workers:
+            w.start()
         try:
             while True:
                 item = q_dev.get()
@@ -193,3 +197,7 @@ class BatchLoader:
                 yield batch
         finally:
             stop.set()
+            # no worker outlives the iteration: one still running when the
+            # process ends can abort it at the interpreter's shutdown
+            for w in workers:
+                w.join(_JOIN_S)

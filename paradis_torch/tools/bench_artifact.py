@@ -46,41 +46,15 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from paradis_torch import resolve_device
 from paradis_torch.config import load_config
-from paradis_torch.tools.bench_interp import card_line, launch_counts
+from paradis_torch.tools.bench_interp import launch_counts
+from paradis_torch.tools.flagship import (GRID, device_of, device_record, dims,  # noqa: F401
+                                          flagship, inputs)
 
-GRID = (32, 64)    # 5.625°
 STEPS = 40         # the 10-day forecast protocol: 40 × 6 h
 WAYS = ("rollout", "steploop", "inprocess")
-
-
-def dims(cfg) -> dict:
-    """The flagship's feature counts under ``cfg``."""
-    f = cfg.features
-    n_levels = len(f.pressure_levels)
-    n_time = int(cfg.dataset.n_time_inputs)
-    d = dict(n_common=len(f.input.atmospheric) * n_levels + len(f.input.surface),
-             output_dim=len(f.output.atmospheric) * n_levels + len(f.output.surface),
-             n_time=n_time, n_forcings=len(f.input.forcings), n_const=len(f.input.constants))
-    d["input_dim"] = (d["n_common"] + d["n_forcings"]) * n_time + d["n_const"]
-    return d
-
-
-def flagship(cfg, grid, device):
-    """The seeded float32 flagship of ``cfg`` on the equiangular ``grid``
-    (without the poles) on ``device``, and its dims."""
-    from paradis_torch.model import Paradis
-    from paradis_torch.sphere.geometry import equiangular_lat_lon
-
-    d = dims(cfg)
-    lat, lon = equiangular_lat_lon(*grid, include_poles=False)
-    model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["output_dim"],
-                                lat_deg=lat, lon_deg=lon, dtype=torch.float32, device=device)
-    return model, d
 
 
 def artifact_config(manifest: dict):
@@ -90,18 +64,6 @@ def artifact_config(manifest: dict):
     from paradis_torch.config import default_config
 
     return default_config().merged_with(yaml.safe_load(manifest["config_yaml"])).resolved()
-
-
-def inputs(d: dict, grid, steps: int, device) -> dict:
-    """``input``, ``forcings``, ``constants`` drawn from ``default_rng(0)`` in
-    that order, as ``scripts/bench_artifact.py`` draws them."""
-    H, W = grid
-    rng = np.random.default_rng(0)
-    shapes = {"input": (1, H, W, d["n_common"] * d["n_time"]),
-              "forcings": (1, steps, H, W, d["n_forcings"] * d["n_time"]),
-              "constants": (1, H, W, d["n_const"])}
-    return {k: torch.tensor(rng.normal(size=s), dtype=torch.float32, device=device)
-            for k, s in shapes.items()}
 
 
 def step_loop(serving, batch: dict) -> torch.Tensor:
@@ -145,7 +107,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--artifact", default=None,
                     help="measure this artifact (written by cli.export) instead of exporting")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = device_of(args.device, "bench_artifact")
     ways = tuple(args.ways.split(","))
     unknown = sorted(set(ways) - set(WAYS))
     if unknown or "inprocess" not in ways:
@@ -154,10 +116,6 @@ def main(argv=None) -> dict:
     from paradis_torch.forecast.export import load_artifact, save_artifact
     from paradis_torch.forecast.rollout import make_forecast_rollout
 
-    if device.type == "cuda":
-        # float32 matmuls and convolutions stay float32 (no TF32), as cli.export sets
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     if args.artifact is None:
         grid = tuple(int(n) for n in args.grid.split(","))
         steps = args.steps
@@ -226,11 +184,7 @@ def main(argv=None) -> dict:
         "max_abs_out": float(ref.abs().max()),
         "max_abs_gap": {way: float((outs[way] - ref).abs().max())
                         for way in ways if way != "inprocess"},
-        "device": {"platform": "gpu" if device.type == "cuda" else "cpu",
-                   "kind": torch.cuda.get_device_name(device) if device.type == "cuda"
-                   else "cpu"},
-        "card": card_line() if device.type == "cuda" else None,
-        "torch_version": torch.__version__, "cuda_version": torch.version.cuda,
+        "cuda_version": torch.version.cuda, **device_record(device),
     }
     print(json.dumps(res), flush=True)
     return res

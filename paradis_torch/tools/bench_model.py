@@ -44,9 +44,9 @@ import time
 import numpy as np
 import torch
 
-from paradis_torch import resolve_device
 from paradis_torch.config import load_config
-from paradis_torch.tools.bench_interp import card_line, launch_counts
+from paradis_torch.tools.bench_interp import launch_counts
+from paradis_torch.tools.flagship import device_of, device_record
 
 GRID = (32, 64)   # 5.625°
 N_SHORT, N_LONG = 4, 20
@@ -86,10 +86,8 @@ def _chain(fn, n: int, device) -> float:
 
 def main(argv=None) -> dict:
     from paradis_torch import _build
-    from paradis_torch.model import Paradis
     from paradis_torch.model.paradis import CONFIG_IMPLS
-    from paradis_torch.sphere.geometry import equiangular_lat_lon
-    from paradis_torch.tools.bench_artifact import dims
+    from paradis_torch.tools.flagship import dims, flagship
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impls", default="xla,pallas")
@@ -105,14 +103,10 @@ def main(argv=None) -> dict:
                                                          if w not in ("fwd", "bwd")]
     if bad:
         raise ValueError(f"{bad}: --impls takes {CONFIG_IMPLS}, --what fwd and bwd")
-    device = resolve_device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("bench_model runs on a CUDA device and none is available; "
-                           "pass --device cpu to run the plain versions")
+    device = device_of(args.device, "bench_model")
     grid = tuple(int(v) for v in args.grid.split(","))
     cfg = load_config(overrides=args.override)
     d = dims(cfg)
-    lat, lon = equiangular_lat_lon(*grid, include_poles=False)
     x = torch.tensor(np.random.default_rng(0).normal(size=(1, *grid, d["input_dim"])),
                      dtype=torch.float32, device=device)
     kernels_built = (all(_build._lib_path(n).is_file() for n in _build.sources())
@@ -121,9 +115,7 @@ def main(argv=None) -> dict:
     calls, rows = {}, {}
     for impl in impls:
         cfg.compute.advection_impl = impl
-        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["output_dim"],
-                                    lat_deg=lat, lon_deg=lon, dtype=torch.bfloat16,
-                                    device=device)
+        model, _ = flagship(cfg, grid, device, dtype=torch.bfloat16)
         fns = _calls(model, x)
         for what in whats:
             key = f"{impl}_{what}"
@@ -149,11 +141,7 @@ def main(argv=None) -> dict:
     out = dict(results)
     out.update(rows=rows, kernels_built=kernels_built, grid=list(grid), dtype="bfloat16",
                batch=1, repeats=args.repeats, n_short=N_SHORT, n_long=N_LONG,
-               device={"platform": "gpu" if device.type == "cuda" else "cpu",
-                       "kind": torch.cuda.get_device_name(device) if device.type == "cuda"
-                       else "cpu"},
-               card=card_line() if device.type == "cuda" else None,
-               torch_version=torch.__version__)
+               **device_record(device))
     print(json.dumps(out))
     return out
 

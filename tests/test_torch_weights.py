@@ -146,6 +146,18 @@ def test_entry_points_raise_without_a_card_and_without_a_device(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_model.main(["--device", "cuda"])
+    # the measuring and operating tools, each before it builds or writes anything
+    from paradis_torch.tools import (bench_forecast, bench_highres, bench_pipeline,
+                                     lq_convergence, ns_convergence, profile_live,
+                                     profile_step, rehearsal, roofline, soak)
+
+    for tool, argv in ((bench_forecast, []), (bench_highres, []), (bench_pipeline, []),
+                       (profile_step, []), (roofline, []), (ns_convergence, []),
+                       (lq_convergence, []), (profile_live, ["--store", "never"]),
+                       (soak, ["--workdir", str(ROOT / "never")]),
+                       (rehearsal, ["--workdir", str(ROOT / "never")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main([*argv, "--device", "cuda"])
     # a rank of a multi-rank cli.train, as the launcher starts it
     from paradis_torch import distributed
     from paradis_torch.cli import train as train_cli
@@ -268,6 +280,14 @@ from paradis_torch.train import sharded_ckpt
 assert distributed.assign_owners([3, 2, 1], 2) == [0, 1, 1]
 assert bench_model.KERNELS == ("interp_fwd", "interp_bwd")
 assert sharded_ckpt.SHARD_DIR == "state_sharded"
+from paradis_torch.tools import (bench_forecast, bench_highres, bench_pipeline, flagship,
+                                 lq_convergence, ns_convergence, profile_live, profile_step,
+                                 rehearsal, roofline, soak)
+assert bench_forecast.CHAIN_SHORT == 2 and bench_highres.CHAIN_LONG == 8
+assert roofline.bound(torch.empty(1, 12, 20, 4), torch.empty(1, 8, 16, 4), "bicubic")[0] > 0
+assert flagship.HR_GRID == (128, 256) and soak.POLL_S > 0 and rehearsal.LEVELS_13[0] == 50
+assert profile_step.RANGE and profile_live.main and bench_pipeline.build_store
+assert ns_convergence.TOY_LEVELS == (500, 850, 1000) and lq_convergence.toy_train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
 assert not bad, bad
@@ -286,7 +306,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     the weight generation, imports the microbenchmark, exports a serving
     artifact, loads it and runs its forward and rollout, imports the artifact
     benchmark, imports the ranks' module, the sharded checkpoints and the
-    model benchmark, and has loaded nothing of JAX, flax or paradis_tpu."""
+    model benchmark, imports the measuring and operating tools (and bounds an
+    interpolation with the roofline's formula), and has loaded nothing of
+    JAX, flax or paradis_tpu."""
     res = subprocess.run([sys.executable, "-c",
                           _ISOLATION.format(root=str(ROOT), tests=str(ROOT / "tests"))],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -309,7 +331,10 @@ def test_no_jax_import_in_the_port_or_the_smoke_script():
                 "utils/logging.py", "utils/system.py", "train/loop.py",
                 "cli/preprocess.py", "cli/train.py", "forecast/export.py", "cli/export.py",
                 "tools/bench_artifact.py", "distributed.py", "train/sharded_ckpt.py",
-                "tools/bench_model.py"):
+                "tools/bench_model.py", "tools/flagship.py", "tools/bench_forecast.py",
+                "tools/bench_highres.py", "tools/bench_pipeline.py", "tools/profile_step.py",
+                "tools/roofline.py", "tools/profile_live.py", "tools/soak.py",
+                "tools/rehearsal.py", "tools/ns_convergence.py", "tools/lq_convergence.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
