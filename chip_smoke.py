@@ -173,7 +173,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``cli.forecast --num-devices 2`` on 2 gloo ranks with ``[forecast-io]``'s
    5.625° store and weights, beside (c): every array equal to
    that phase's one-process store.  Seconds and samples/s of each run (runs
-   side by side share the card and the host's cores).
+   side by side share the card and the host's cores).  ``[spatial]``: one
+   launch of 2 gloo ranks started beside ``[multi-gpu]``'s (``start_spatial``),
+   on the ``data × lat × space`` grid of ranks: (e) ``cli.train`` with
+   ``compute.lat_devices=2`` and (f) with ``compute.spatial_devices=2``,
+   ``MG_STEPS`` steps of (a)'s configuration with the global batch of 2 on
+   each rank's block, each step's loss within ``MG_LOSS_RTOL`` of (b), #1
+   and #2 8 times a step on each rank; (g) ``cli.forecast`` with
+   ``compute.lat_devices=2``, ``SPATIAL_FC_STEPS`` float32 steps at 1.40625°
+   on ``[forecast-io]``'s store and weights, within a BitRound(16) step plus
+   ``SPATIAL_FC_TOL`` of each variable's largest value of that phase's
+   one-process store, #1 (the band's clamped positions; not #5) 8 times a
+   step on each rank; the seconds a step beside the one process's.
    ``[bench-pipeline]``, ``[roofline]``: what the process that prepared
    ``[export]`` ran after ``cli.export`` (``host_tools``):
    ``tools/bench_pipeline`` on [data]'s stores, the host path and with the
@@ -440,6 +451,12 @@ MG_FSDP_K = 2
 # backward's float atomics), so the gaps are that noise; the limit is 5x
 # the largest
 MG_LOSS_RTOL = 1e-4
+# [spatial]: forecast steps of the 1.40625° lat_devices=2 run, and its
+# store's gap to [forecast-io]'s one-process store beyond a BitRound(16)
+# step, as a share of each variable's largest value (float32 sums in
+# another order over 3 steps of 8 layers; the CPU test measures 3.1e-8)
+SPATIAL_FC_STEPS = 3
+SPATIAL_FC_TOL = 1e-4
 # the file [export]'s preparation writes when [forecast-io]'s store and weights
 # of a grid are ready (the grid's latitudes in the name)
 FIO_READY = "fio_ready{}.json"
@@ -456,9 +473,10 @@ MG_RUN_FILES = ["checkpoints/best/best/params.pt", "checkpoints/best/best/state.
                 "checkpoints/best/metric.json", "checkpoints/epochs/0001/params.pt",
                 "checkpoints/epochs/0001/state.pt", "checkpoints/last.json", "config.yaml",
                 "git_info.json", "metrics.csv"]
-# the microbenchmark's repeats here (its default is 5), and the model benchmark's (3)
+# the microbenchmark's repeats here (its default is 5), and the model benchmark's (3;
+# one round of turns pays for [spatial], ~26 s a round)
 BENCH_INTERP_REPEATS = 2
-BENCH_MODEL_REPEATS = 2
+BENCH_MODEL_REPEATS = 1
 
 
 def log(msg: str) -> None:
@@ -2774,27 +2792,30 @@ def report_host_tools(tools: dict, card: str) -> None:
 
 
 def rank_worker(argv: list[str]) -> int:
-    """``--worker {train,forecast} OUT ARGS... [--then OUT ARGS...]``: one rank
-    of a launch that ``torch.distributed.run`` started: for each run in turn
-    the entry point's ``main(ARGS)``, then the rank's launch counts of that
-    run and the entry point's result into ``OUT.rank<RANK>.json``.  The runs
-    of one launch share its process group: it is shut down after the last
-    (a launch's process start, ~16 s, is paid once)."""
+    """``--worker {train,forecast} OUT ARGS... [--then [KIND] OUT ARGS...]``:
+    one rank of a launch that ``torch.distributed.run`` started: for each run
+    in turn the entry point's ``main(ARGS)`` (``cli.train`` or
+    ``cli.forecast``: the launch's kind, or the run's own after ``--then``),
+    then the rank's launch counts of that run and the entry point's result
+    into ``OUT.rank<RANK>.json``.  The runs of one launch share its process
+    group: it is shut down after the last (a launch's process start, ~16 s,
+    is paid once)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from paradis_torch import distributed
+    from paradis_torch.cli import forecast as forecast_cli
+    from paradis_torch.cli import train as train_cli
 
     kind, runs = argv[0], []
     for arg in argv[1:]:
         if arg == "--then" or not runs:
-            runs.append([] if arg == "--then" else [arg])
+            runs.append([kind] if arg == "--then" else [kind, arg])
+        elif len(runs[-1]) == 1 and arg in ("train", "forecast"):
+            runs[-1][0] = arg
         else:
             runs[-1].append(arg)
-    if kind == "train":
-        from paradis_torch.cli import train as cli
-    else:
-        from paradis_torch.cli import forecast as cli
     shutdown = distributed.shutdown_distributed
-    for i, (out, *args) in enumerate(runs):
+    for i, (run_kind, out, *args) in enumerate(runs):
+        cli = train_cli if run_kind == "train" else forecast_cli
         distributed.shutdown_distributed = shutdown if i == len(runs) - 1 else (lambda: None)
         reset_counts()
         t0 = time.perf_counter()
@@ -2809,18 +2830,21 @@ def rank_worker(argv: list[str]) -> int:
 
 def torchrun(n: int, kind: str, runs: list, timeout: int = 400):
     """Start ``python -m torch.distributed.run --nproc-per-node n`` of this
-    script's ``--worker`` mode for ``runs``, ``[(OUT, ARGS), ...]`` in turn;
-    returns the function that waits for it and returns the launch's wall
-    seconds and, for each run, each rank's record.  A rank's failure fails
-    the phase (the launcher then stops the others and exits non-zero)."""
+    script's ``--worker`` mode for ``runs``, ``[(OUT, ARGS[, KIND]), ...]``
+    in turn (``kind`` where a run names none); returns the function that
+    waits for it and returns the launch's wall seconds and, for each run,
+    each rank's record.  A rank's failure fails the phase (the launcher then
+    stops the others and exits non-zero)."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     argv = []
-    for i, (out, args) in enumerate(runs):
-        argv += (["--then"] if i else []) + [str(out), *args]
+    for i, (out, args, *run_kind) in enumerate(runs):
+        argv += (["--then", *run_kind] if i else []) + [str(out), *args]
+    if runs and len(runs[0]) > 2:
+        kind = runs[0][2]
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
@@ -2842,7 +2866,7 @@ def torchrun(n: int, kind: str, runs: list, timeout: int = 400):
                              f"{stdout[-2000:]}\n{stderr[-4000:]}")
         return {"seconds": seconds,
                 "runs": [[json.loads(out.with_name(f"{out.name}.rank{r}.json").read_text())
-                          for r in range(n)] for out, _ in runs]}
+                          for r in range(n)] for out, *_ in runs]}
 
     return wait
 
@@ -2954,6 +2978,110 @@ def run_multi_gpu(card: str, lr_store: Path, fio_root: Path, root: Path) -> dict
                                and all(r["launches"] == [8 * STEPS, 0, 0, 0, 0, 0]
                                        for r in ranks))
     return res
+
+
+def start_spatial(lr_store: Path, fio_root: Path, root: Path):
+    """``[spatial]``'s launch, started beside ``[multi-gpu]``'s: 2 gloo ranks
+    sharing the card, (e) ``cli.train`` with ``compute.lat_devices=2`` and
+    (f) with ``compute.spatial_devices=2`` on ``[data]``'s 5.625° store as
+    ``[multi-gpu]``'s runs but with the global batch of 2 on each rank's
+    block (the data size is 1), then (g) ``cli.forecast`` with
+    ``compute.lat_devices=2`` on ``[forecast-io]``'s 1.40625° store and
+    weights for ``SPATIAL_FC_STEPS`` steps; returns the wait."""
+    common = ["--device", "cuda", f"dataset.root_dir={lr_store}", *LOOP_DATES,
+              *TRAIN_OVERRIDES, "training.log_every_n_steps=1", f"training.log_dir={root}",
+              f"training.max_steps={MG_STEPS}", "compute.batch_size=2",
+              "compute.dist_backend=gloo", "training.checkpointing.enabled=false"]
+    _, end_date, _, overrides = FIO_GRIDS[HR]
+    return torchrun(2, "train", [
+        (root / "lat2", [*common, "training.experiment_name=lat2", "compute.lat_devices=2"]),
+        (root / "space2", [*common, "training.experiment_name=space2",
+                           "compute.spatial_devices=2"]),
+        (root / "fc_lat2", [
+            "--checkpoint-path", str(fio_root / f"fio_params{HR[0]}.pt"), "--output-file",
+            str(root / "fc_lat2.zarr"), "--forecast-steps", str(SPATIAL_FC_STEPS),
+            "--sampling-interval", FIO_INTERVAL, "--start-date", FIO_START, "--end-date",
+            end_date, "--batch-size", "1", "--write-every-n", str(FIO_WRITE_EVERY),
+            "--device", "cuda", f"dataset.root_dir={fio_root / f'fio_store{HR[0]}'}",
+            *overrides, "compute.lat_devices=2", "compute.dist_backend=gloo"], "forecast")])
+
+
+def finish_spatial(wait, root: Path, one: dict, fio_root: Path, fio_hr: dict) -> dict:
+    """``[spatial]``'s gates: each train run's losses within ``MG_LOSS_RTOL``
+    of ``[multi-gpu]``'s one process with the batch of 2 (``one``), #1 and #2
+    8 times a step on each rank (and #1 8 times a validation batch); the
+    forecast's store within a BitRound(16) step plus ``SPATIAL_FC_TOL`` of
+    each variable's largest value of ``[forecast-io]``'s one-process
+    1.40625° store over the leads it holds, #1 (not #5: a block's positions
+    take the unbanded kernel on the clamped rows) 8 times a step on each
+    rank.  Step and rollout seconds beside the one process's."""
+    import numpy as np
+
+    from paradis_torch.data import zarrlite
+
+    sp = wait()
+    res = {"launch_seconds": sp["seconds"], "ok": True}
+    one_dt = float(np.median([read_metrics(root.parent / "nccl1" / "metrics.csv")["dt"][s]
+                              for s in one["steps"][1:]]))
+    for name, ranks in zip(("lat2", "space2"), sp["runs"][:2]):
+        m = read_metrics(root / name / "metrics.csv")
+        steps = sorted(m["train_loss"])
+        n_val = len(m.get("val_loss", {}))
+        losses = [m["train_loss"][s] for s in steps]
+        r = {"seconds": max(x["seconds"] for x in ranks), "steps": steps, "losses": losses,
+             "loss_rel_gap": float(max(abs(a - b) / abs(b) for a, b in
+                                       zip(losses, one["losses"]))),
+             "launches": [x["launches"] for x in ranks],
+             "step_s": float(np.median([m["dt"][s] for s in steps[1:]])), "one_step_s": one_dt}
+        r["ok"] = (steps == one["steps"] and r["loss_rel_gap"] <= MG_LOSS_RTOL
+                   and all(x["launches"] == [8 * (len(steps) + n_val), 8 * len(steps), 0, 0, 0, 0]
+                           for x in ranks))
+        res[name] = r
+        res["ok"] = res["ok"] and r["ok"]
+    ranks = sp["runs"][2]
+    a = zarrlite.open_store(fio_root / f"fio_forecast{HR[0]}.zarr")
+    b = zarrlite.open_store(root / "fc_lat2.zarr")
+    gaps, within = {}, True
+    for name in b.arrays():
+        y = b[name][...]
+        if y.ndim < 4:
+            continue
+        x = a[name][:, : y.shape[1]]
+        ok = np.isfinite(x)
+        within = within and bool((np.isfinite(y) == ok).all())
+        top = float(np.abs(x[ok]).max())
+        gaps[name] = float(np.abs(y[ok] - x[ok]).max() / top)
+        within = within and bool((np.abs(y[ok] - x[ok])
+                                  <= BITROUND_STEP * np.abs(x[ok]) + SPATIAL_FC_TOL * top).all())
+    steps = SPATIAL_FC_STEPS
+    fc = {"seconds": max(x["seconds"] for x in ranks), "gaps": gaps,
+          "launches": [x["launches"] for x in ranks],
+          "rollout_s_a_step": [x["result"]["rollout_s"] / steps for x in ranks],
+          "one_device_s_a_step": 1.0 / fio_hr["forecast_steps_per_s_device"]}
+    fc["ok"] = within and bool(gaps) and all(x["launches"] == [8 * steps, 0, 0, 0, 0, 0]
+                                             for x in ranks)
+    res["forecast"] = fc
+    res["ok"] = res["ok"] and fc["ok"]
+    return res
+
+
+def report_spatial(sp: dict, card: str) -> None:
+    """``[spatial]``'s lines; fails the phase on a failed gate."""
+    log("[spatial] " + json.dumps(sp))
+    if not sp["ok"]:
+        raise SystemExit(f"the spatial runs failed their checks: {sp}")
+    for key in ("lat2", "space2"):
+        r = sp[key]
+        log(f"[spatial] {key}: 2 gloo ranks sharing the card, losses "
+            f"{[round(v, 6) for v in r['losses']]}, gap to one process {r['loss_rel_gap']:.3g} "
+            f"(limit {MG_LOSS_RTOL}), {r['step_s']:.3f} s a step against {r['one_step_s']:.3f} "
+            f"in one process, launches #1/#2 a rank {[x[:2] for x in r['launches']]} on {card}")
+    fc = sp["forecast"]
+    log(f"[spatial] forecast 1.40625 lat2: {SPATIAL_FC_STEPS} float32 steps, rollout "
+        f"{[round(v, 3) for v in fc['rollout_s_a_step']]} s a step a rank against "
+        f"{fc['one_device_s_a_step']:.3f} (one process, device-only), largest gap "
+        f"{max(fc['gaps'].values()):.3g} of a variable's largest value, launches #1 a rank "
+        f"{[x[0] for x in fc['launches']]}; launch {sp['launch_seconds']:.1f} s on {card}")
 
 
 def report_bench_model(res: dict, card: str) -> None:
@@ -3443,14 +3571,22 @@ def main() -> int:
 
     phase_done("[bench-model]")
 
-    # the multi-rank paths, each in its own processes
+    # the multi-rank paths, each in its own processes; the spatial runs beside
     mg_dir = tempfile.TemporaryDirectory(prefix="paradis-mg-")
-    mg = run_multi_gpu(card, Path(data["stores"][f"{NLAT}x{NLON}"]["path"]),
-                       Path(fio_dir.name), Path(mg_dir.name))
+    lr_store = Path(data["stores"][f"{NLAT}x{NLON}"]["path"])
+    sp_root = Path(mg_dir.name) / "spatial"
+    sp_wait = start_spatial(lr_store, Path(fio_dir.name), sp_root)
+    mg = run_multi_gpu(card, lr_store, Path(fio_dir.name), Path(mg_dir.name))
     report_multi_gpu(mg, card)
     torch.cuda.empty_cache()
 
     phase_done("[multi-gpu]")
+
+    sp = finish_spatial(sp_wait, sp_root, mg["nccl"], Path(fio_dir.name),
+                        fio[f"{HR[0]}x{HR[1]}"])
+    report_spatial(sp, card)
+
+    phase_done("[spatial]")
 
     # bench_pipeline and roofline --cost, run by the preparing process
     report_host_tools(wait_ready(Path(fio_dir.name) / TOOLS_READY, prep, "its host tools"),

@@ -18,7 +18,12 @@ Over several GPUs, one process each, under the launcher:
 
 Each rank forecasts its contiguous share of the init times on
 ``cuda:LOCAL_RANK`` into the one store (``run_forecast``);
-``--num-devices`` must equal the launched world size.
+``--num-devices`` × ``compute.lat_devices`` × ``compute.spatial_devices``
+must equal the launched world size.  Over the spatial axes each rank rolls
+out its block of the grid, as the JAX mesh splits it:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m paradis_torch.cli.forecast \
+        --num-devices 1 compute.lat_devices=2 --checkpoint-path ckpt_dir ...
 """
 
 from __future__ import annotations
@@ -54,8 +59,7 @@ def main(argv=None) -> dict:
 
     from paradis_torch import resolve_device
     from paradis_torch.config import load_config
-    from paradis_torch.distributed import (data_parallel_size, initialize_distributed,
-                                           shutdown_distributed)
+    from paradis_torch.distributed import initialize_distributed, rank_grid, shutdown_distributed
     from paradis_torch.utils.system import platform_device
 
     cfg = load_config(args.config, overrides=args.overrides)
@@ -87,13 +91,14 @@ def main(argv=None) -> dict:
     ranks = initialize_distributed(cfg, device)
     try:
         # the launched world against --num-devices and the config, before any file
-        if args.num_devices != ranks.world:
+        spatial = int(cfg.compute.get("lat_devices", 1) or 1) * int(
+            cfg.compute.get("spatial_devices", 1) or 1)
+        if args.num_devices * spatial != ranks.world:
             raise ValueError(
-                f"--num-devices {args.num_devices}, but {ranks.world} process(es) were "
-                f"launched: a multi-GPU forecast launches one process per device "
-                f"(python -m torch.distributed.run --nproc-per-node N)")
-        data_parallel_size(cfg)
-        stats = _forecast(cfg, args, ranks)
+                f"--num-devices {args.num_devices} × {spatial} spatial rank(s), but "
+                f"{ranks.world} process(es) were launched: a multi-GPU forecast launches one "
+                f"process per device (python -m torch.distributed.run --nproc-per-node N)")
+        stats = _forecast(cfg, args, ranks, rank_grid(cfg))
     finally:
         shutdown_distributed()
     if ranks.rank == 0:
@@ -101,8 +106,9 @@ def main(argv=None) -> dict:
     return stats
 
 
-def _forecast(cfg, args, ranks) -> dict:
-    """This rank's share of the forecast, on its device."""
+def _forecast(cfg, args, ranks, grid) -> dict:
+    """This rank's share of the forecast (its data rank's init times, its
+    block of the grid), on its device."""
     import torch
 
     from paradis_torch.data.dataset import ERA5Dataset
@@ -130,9 +136,11 @@ def _forecast(cfg, args, ranks) -> dict:
     load_params(args.checkpoint_path, model)
 
     writer = ZarrForecastWriter(cfg, dataset)
-    share = DatasetShare(dataset, *contiguous_share(len(dataset), ranks.rank, ranks.world))
+    share = DatasetShare(dataset, *contiguous_share(len(dataset), grid.d, grid.data))
+    block = (None if grid.spatial == 1 else
+             (grid.rows(dataset.lat_size), grid.cols(dataset.lon_size)))
     loader = BatchLoader(share, args.batch_size, shuffle=False, drop_last=False,
-                         device=device)
+                         device=device, block=block)
     return run_forecast(model, dataset, cfg, writer, loader)
 
 

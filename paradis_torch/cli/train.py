@@ -18,6 +18,13 @@ Each rank trains on ``cuda:LOCAL_RANK``; ``compute.fsdp=true`` shards the
 parameters and the optimizer state, ``compute.dist_backend`` picks the
 backend (``auto``: NCCL on cards, gloo on the CPU; ranks sharing one card
 need ``gloo``).  ``--device cpu`` runs the ranks on the CPU over gloo.
+
+Over the spatial axes of the JAX mesh, each rank on a block of the grid
+(``compute.num_devices × lat_devices × spatial_devices`` ranks, the data
+size 1 here):
+
+    python -m torch.distributed.run --nproc-per-node 4 -m paradis_torch.cli.train \
+        compute.lat_devices=2 compute.spatial_devices=2 compute.dist_backend=gloo ...
 """
 
 from __future__ import annotations

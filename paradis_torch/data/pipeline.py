@@ -82,14 +82,20 @@ class BatchLoader:
     rows of each global batch of ``batch_size`` this rank loads.  Every rank
     walks the same seeded global order, so rank r's samples of a batch are
     rows ``rows`` of the one-process run's batch
-    (``paradis_tpu/data/pipeline.py:68-91``)."""
+    (``paradis_tpu/data/pipeline.py:68-91``).  ``block`` (over spatial axes,
+    ``(rows, cols)`` of ``sphere.partition.RankGrid``): the rank's latitudes and
+    longitudes of every field, cut on the host before the copy to the device
+    (the layouts of ``batch_shardings``: ``input`` / ``constants``
+    ``[B,H,W,·]``, ``target`` / ``forcings`` ``[B,S,H,W,·]``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
-                 device=None, rows: slice | None = None):
+                 device=None, rows: slice | None = None,
+                 block: tuple[slice, slice] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rows = rows if rows is not None else slice(None)
+        self.block = block
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = max(1, prefetch)
@@ -155,6 +161,10 @@ class BatchLoader:
                 for b in range(n_batches):
                     idxs = order[b * self.batch_size : (b + 1) * self.batch_size][self.rows]
                     batch = self._collate([self.dataset[int(i)] for i in idxs])
+                    if self.block is not None:
+                        batch = {k: v if k == "index" else
+                                 np.ascontiguousarray(v[..., self.block[0], self.block[1], :])
+                                 for k, v in batch.items()}
                     if not _put(q_host, batch, stop):
                         return
                 _put(q_host, None, stop)

@@ -17,23 +17,38 @@ the collectives are explicit:
   parameters and the optimizer state by whole parameter (every parameter
   has one owning rank, :func:`assign_owners`), the counterpart of
   ``fsdp_shardings`` / ``shard_state``; ``train/sharded_ckpt.py`` saves
-  and restores that layout.
-
-The ``(lat, space)`` spatial sharding of the JAX package (GSPMD halo
-exchanges through the geocyclic pad, the stencils and the advection) has no
-counterpart without hand-written halo exchanges: ``compute.spatial_devices``
-or ``compute.lat_devices`` above 1 raises (ROADMAP.md, Queue 1 item 8b).
+  and restores that layout;
+* the ``(lat, space)`` spatial axes (``compute.lat_devices``,
+  ``compute.spatial_devices``): the ranks form a ``data × lat × space``
+  grid in ``create_mesh``'s order, ``rank = (d·lat + l)·space + s``
+  (:func:`rank_grid`, after :func:`fit_check`, makes each rank's
+  ``sphere.partition.RankGrid`` and the process groups, once).  A rank holds
+  the ``H/lat`` rows and ``W/space`` columns of its block of every field;
+  the layers learn of the grid through ``sphere.partition.spatial_rules``,
+  and its collectives are all ``all_reduce`` calls, which gloo carries on CUDA
+  tensors too, so ranks sharing one card run the code of ranks on their own
+  cards.  The gradients of a rank's block are summed over the spatial group
+  and averaged over the data group by :class:`DataParallel`, in one
+  ``all_reduce`` over the world;
+* distributed NorMuon: each rank orthogonalizes its share of a
+  Newton–Schulz stack (``RankGrid.ns_share``, the counterpart of
+  ``constrain_ns_batch``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import logging
 import os
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+from paradis_torch.sphere.partition import RankGrid
+
+log = logging.getLogger("paradis_torch")
 
 DIST_BACKENDS = ("auto", "nccl", "gloo")
 _BUCKET_BYTES = 25 * 2**20  # gradient bucket, as DDP's default
@@ -158,40 +173,39 @@ def barrier() -> None:
         dist.barrier()
 
 
-def check_supported(cfg) -> None:
-    """Raise on the sharding settings the port does not have: the JAX
-    package's spatial ``(lat, space)`` mesh axes."""
+def _sizes(cfg) -> tuple[int, int, int]:
+    """``(num_devices × num_nodes, lat_devices, spatial_devices)`` as asked."""
     compute = cfg.compute
-    wide = {k: int(compute.get(k, 1) or 1) for k in ("spatial_devices", "lat_devices")}
-    wide = {k: v for k, v in wide.items() if v > 1}
-    if wide:
-        raise NotImplementedError(
-            f"compute.{' / '.join(wide)} = {wide}: spatial sharding is not ported; "
-            f"multi-GPU runs of paradis_torch are data parallel only (ROADMAP.md, "
-            f"Queue 1 item 8b)")
+    n = {k: int(compute.get(k, 1) or 1)
+         for k in ("num_devices", "num_nodes", "lat_devices", "spatial_devices")}
+    return n["num_devices"] * n["num_nodes"], n["lat_devices"], n["spatial_devices"]
 
 
-def data_parallel_size(cfg) -> int:
-    """The number of data-parallel ranks: ``compute.num_devices ×
-    compute.num_nodes``, which must equal the launched world size or be 1
-    (the defaults, taken as "what was launched").  Any other value raises,
-    before any batch is loaded; so does ``compute.coordinator_address``
-    without a process group.  (The JAX ``mesh_from_config`` silently takes
-    whatever devices there are instead.)"""
-    check_supported(cfg)
-    compute = cfg.compute
-    asked = int(compute.get("num_devices", 1) or 1) * int(compute.get("num_nodes", 1) or 1)
-    if compute.get("coordinator_address", None) and not is_initialized():
+def fit_check(cfg) -> tuple[int, int, int]:
+    """``(data, lat, space)`` of the launched world: ``compute.num_devices ×
+    compute.num_nodes × compute.lat_devices × compute.spatial_devices`` must
+    equal the launched world size, where ``num_devices × num_nodes`` of 1
+    (the defaults) is taken as "the world over the spatial axes".  Anything
+    else raises ``ValueError`` before any batch is loaded; so does
+    ``compute.coordinator_address`` without a process group.  (The JAX
+    ``mesh_from_config`` silently takes whatever devices there are instead.)"""
+    asked, lat, space = _sizes(cfg)
+    if min(asked, lat, space) < 1:
+        raise ValueError(f"compute.num_devices × num_nodes, lat_devices, spatial_devices = "
+                         f"{asked}, {lat}, {space}: each must be at least 1")
+    if cfg.compute.get("coordinator_address", None) and not is_initialized():
         raise ValueError("compute.coordinator_address is set and no process group is "
                          "initialised: a multi-GPU run calls initialize_distributed first "
                          "(python -m paradis_torch.cli.train does)")
     world = world_size()
-    if asked not in (1, world):
+    data = world // (lat * space) if asked == 1 and world % (lat * space) == 0 else asked
+    if data * lat * space != world:
         raise ValueError(
-            f"compute.num_devices × compute.num_nodes = {asked}, but {world} process(es) "
-            f"were launched: a multi-GPU run launches one process per device "
-            f"(python -m torch.distributed.run --nproc-per-node N)")
-    return world
+            f"compute.num_devices × compute.num_nodes × compute.lat_devices × "
+            f"compute.spatial_devices = {asked} × {lat} × {space} = {asked * lat * space}, "
+            f"but {world} process(es) were launched: a multi-GPU run launches one process "
+            f"per device (python -m torch.distributed.run --nproc-per-node N)")
+    return data, lat, space
 
 
 def local_batch_slice(global_batch: int, rank: int, world: int) -> slice:
@@ -211,25 +225,61 @@ def contiguous_share(n: int, rank: int, world: int) -> tuple[int, int]:
     return lo, lo + per + (rank < extra)
 
 
-def all_reduce_mean(x):
+_GROUPS: dict[tuple[int, int, int], tuple[list, list]] = {}
+
+
+def _grid_groups(data: int, lat: int, space: int) -> tuple[list, list]:
+    """The spatial groups (by ``d``) and the space rows (by ``(d, l)``),
+    made once a layout with ``dist.new_group``, which every rank calls for
+    every group, in the same order."""
+    key = (data, lat, space)
+    if key not in _GROUPS:
+        def make(ranks):
+            return dist.new_group(ranks) if len(ranks) > 1 else None
+
+        spatial = [make([(d * lat + l) * space + s for l in range(lat) for s in range(space)])
+                   for d in range(data)]
+        rows = [make([(d * lat + l) * space + s for s in range(space)])
+                for d in range(data) for l in range(lat)]
+        _GROUPS[key] = (spatial, rows)
+    return _GROUPS[key]
+
+
+def rank_grid(cfg) -> RankGrid:
+    """This rank's :class:`RankGrid` for the config, after :func:`fit_check`;
+    the process groups are made on the first call for a layout."""
+    data, lat, space = fit_check(cfg)
+    rank = get_rank()
+    d, rest = divmod(rank, lat * space)
+    l, s = divmod(rest, space)
+    if lat * space == 1:
+        return RankGrid(data, lat, space, d, l, s)
+    spatial, rows = _grid_groups(data, lat, space)
+    return RankGrid(data, lat, space, d, l, s, spatial[d], rows[d * lat + l])
+
+
+def all_reduce_mean(x, divisor: int | None = None):
     """The mean over the ranks of a tensor, or of each tensor of a dict (on
-    the device; one collective for a dict, no host sync under NCCL).
-    Returns ``x`` itself without a process group."""
+    the device; one collective for a dict, no host sync under NCCL): the sum
+    over the world divided by the world size, or by ``divisor`` (the data
+    size, for gradients of blocks that the spatial group sums).  Returns
+    ``x`` itself without a process group."""
     if not is_initialized():
         return x
     if isinstance(x, dict):
         keys = list(x)
-        return dict(zip(keys, _mean_tensors([x[k] for k in keys])))
-    return _mean_tensors([x])[0]
+        return dict(zip(keys, _mean_tensors([x[k] for k in keys], divisor)))
+    return _mean_tensors([x], divisor)[0]
 
 
-def _mean_tensors(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Each tensor's mean over the ranks, in its own dtype, through one flat
-    float32 buffer (the inputs are left as they were)."""
-    world = dist.get_world_size()
+def _mean_tensors(tensors: list[torch.Tensor], divisor: int | None = None
+                  ) -> list[torch.Tensor]:
+    """Each tensor's sum over the ranks over ``divisor`` (the world size
+    unless given), in its own dtype, through one flat float32 buffer (the
+    inputs are left as they were)."""
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     dist.all_reduce(flat)
-    flat.div_(world)
+    flat.div_(divisor or dist.get_world_size())
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
@@ -270,11 +320,25 @@ class DataParallel:
     on CUDA tensors, and keeps the parameters plain tensors, so the custom
     ops, gradient checkpointing and the stacked Newton–Schulz run as on one
     device.
+
+    ``grid`` (:func:`rank_grid`; all ranks data parallel when None): over
+    spatial axes a rank's gradients are its block's share, so the average
+    is the sum over the world divided by the data size (the sum over the
+    spatial group, averaged over the data group); the replicated optimizer
+    then splits its Newton–Schulz stacks over the grid.  Sharding with
+    spatial axes is not ported (ROADMAP.md, Queue 1 item 8d) and raises.
     """
 
-    def __init__(self, model: torch.nn.Module, fsdp: bool = False):
+    def __init__(self, model: torch.nn.Module, fsdp: bool = False,
+                 grid: RankGrid | None = None):
         self.model = model
         self.world, self.rank = world_size(), get_rank()
+        self.grid = grid if grid is not None else RankGrid(self.world, d=self.rank)
+        if fsdp and self.grid.spatial > 1:
+            raise NotImplementedError(
+                "compute.fsdp with compute.lat_devices / compute.spatial_devices above 1: "
+                "sharding the parameters over the data group of a spatial grid is not "
+                "ported (ROADMAP.md, Queue 1 item 8d)")
         self.active = is_initialized()
         self.named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.fsdp = bool(fsdp) and self.world > 1
@@ -350,7 +414,8 @@ class DataParallel:
 
     def average_gradients(self, owned_only: bool = True) -> None:
         """Average every parameter's ``.grad`` over the ranks (sum, then
-        divide by the world size), in buckets of ``_BUCKET_BYTES`` a dtype.
+        divide by the data size: the world size without spatial axes), in
+        buckets of ``_BUCKET_BYTES`` a dtype.
         A parameter with no gradient on this rank takes part as zeros.
         Sharded, a rank then keeps only its own parameters' gradients, unless
         ``owned_only`` is false (a checkpoint inside an accumulation window,
@@ -378,9 +443,18 @@ class DataParallel:
     def _reduce_bucket(self, grads: list[torch.Tensor]) -> None:
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
-        flat.div_(self.world)
+        flat.div_(self.grid.data)
         torch._foreach_copy_(grads, [v.view_as(g) for v, g in
                                      zip(flat.split([g.numel() for g in grads]), grads)])
+
+    def spread_gradients(self) -> None:
+        """Undo :meth:`average_gradients` for a window that goes on: each
+        rank's whole (averaged) gradients become its ``1/spatial`` share, so
+        the window's next average sums them back to the whole."""
+        if self.grid.spatial > 1:
+            with torch.no_grad():
+                torch._foreach_div_([p.grad for _, p in self.named if p.grad is not None],
+                                    self.grid.spatial)
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, in place (sharded sums of squares)."""

@@ -115,10 +115,14 @@ def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
     barrier every rank writes its own inits' regions.  Those are disjoint:
     the writer's chunks hold one init time each (``chunks=(1, ...)`` in
     ``ZarrForecastWriter.init_store``), so no two ranks touch one chunk file.
-    A ragged tail needs no padding: the ranks share no collective in a
-    rollout.  The spatial mesh axes raise (``distributed.check_supported``).
-    On a card the native host library is required, so that the store's
-    chunks are Blosc-zstd and never the zlib frames its absence would give.
+    A ragged tail needs no padding: the data ranks share no collective in a
+    rollout.  Over spatial axes (``distributed.rank_grid``: the loader gives
+    this rank its block of its data rank's share) each rank rolls out its
+    block inside ``sphere.partition.spatial_rules``, the blocks are gathered
+    over the spatial group after each rollout, and the group's first rank
+    copies and writes them.  On a card the native host library is required,
+    so that the store's chunks are Blosc-zstd and never the zlib frames its
+    absence would give.
 
     Returns the host-clock seconds of the run and of its parts, for the
     caller to report: ``seconds`` (all of it), ``rollout_s`` (the rollouts,
@@ -127,12 +131,14 @@ def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
     with ``steps`` (forecast steps taken, summed over init times),
     ``samples``, ``copy_bytes`` and ``forecast_steps_per_s`` (steps over
     ``seconds``).  Over several ranks these are this rank's, ``ranks`` lists
-    every rank's, and ``total`` holds their sums (``seconds`` the slowest
-    rank's, ``forecast_steps_per_s`` all steps over it).
+    every rank's, and ``total`` holds their sums over the ranks that write
+    (``seconds`` the slowest rank's, ``forecast_steps_per_s`` all steps
+    over it).
     """
     from paradis_torch import distributed
+    from paradis_torch.sphere.partition import spatial_rules
 
-    distributed.check_supported(cfg)
+    grid = distributed.rank_grid(cfg)
     world, rank = distributed.world_size(), distributed.get_rank()
     device = model.device
     if device.type == "cuda":
@@ -152,9 +158,17 @@ def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
     for batch in batch_loader:
         sample_idx = np.asarray(batch.pop("index"))
         t0 = time.perf_counter()
-        stored = rollout(batch, dataset.num_common_features)  # [B, T_stored, H, W, C]
+        with spatial_rules(grid):
+            stored = rollout(batch, dataset.num_common_features)  # [B, T_stored, H, W, C]
+        if grid.spatial > 1:
+            stored = grid.gather(stored)
         _sync(device)
         t1 = time.perf_counter()
+        stats["steps"] += len(sample_idx) * batch["forcings"].shape[1]
+        stats["samples"] += len(sample_idx)
+        stats["rollout_s"] += t1 - t0
+        if not grid.lead:
+            continue
         stored = stored.cpu().numpy()
         t2 = time.perf_counter()
         stored = np.moveaxis(stored, -1, 2)  # [B, T_stored, C, H, W]
@@ -167,11 +181,8 @@ def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
                 start_idx=lo,
                 dataset=dataset,
             )
-        stats["rollout_s"] += t1 - t0
         stats["copy_s"] += t2 - t1
         stats["write_s"] += time.perf_counter() - t2
-        stats["steps"] += len(sample_idx) * batch["forcings"].shape[1]
-        stats["samples"] += len(sample_idx)
         stats["copy_bytes"] += stored.nbytes
     stats["seconds"] = time.perf_counter() - start
     stats["forecast_steps_per_s"] = stats["steps"] / stats["seconds"]
@@ -179,9 +190,10 @@ def run_forecast(model, dataset, cfg, writer, batch_loader) -> dict:
         return stats
     import torch.distributed as dist
 
+    stats["lead"] = grid.lead
     ranks = [None] * world
     dist.all_gather_object(ranks, stats)
-    total = {k: sum(r[k] for r in ranks) for k in ("steps", "samples", "copy_bytes")}
+    total = {k: sum(r[k] for r in ranks if r["lead"]) for k in ("steps", "samples", "copy_bytes")}
     total["seconds"] = max(r["seconds"] for r in ranks)
     total["forecast_steps_per_s"] = total["steps"] / total["seconds"]
     return dict(stats, rank=rank, ranks=ranks, total=total)

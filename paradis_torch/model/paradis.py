@@ -19,11 +19,16 @@ each physics layer in the backward, all of it under ``remat_policy: none``;
 ``advect`` keeps the interpolation's output and ``advect_pos`` also its
 departure positions (the JAX package's policies, as a selective-checkpoint
 policy over the custom ops of ``ops/interp_cuda.py``, ``ops/interp_dense.py``
-and ``ops/advection.py``).  Spatial sharding constraints are not ported.
+and ``ops/advection.py``).  Inside ``sphere.partition.spatial_rules`` the
+model runs on a rank's block of the grid (the JAX package's
+``constrain_spatial`` points): its layers exchange halos, gather the
+advected field and average the pole rows over the ranks
+(``paradis_torch/distributed.py``); the grids stay whole buffers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -32,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts, noop_context_fn)
+                                    create_selective_checkpoint_contexts, noop_context_fn,
+                                    set_checkpoint_early_stop)
 
 from paradis_torch import resolve_device
 from paradis_torch.ops.advection import AUTO_ALIASES, INTERP_IMPLS, NeuralSemiLagrangian
@@ -40,6 +46,7 @@ from paradis_torch.ops.blocks import GMBlock, PhysicalDownsample, SepConv, _Dept
 from paradis_torch.ops.resize import periodic_upsample
 from paradis_torch.sphere.geometry import lonlat_grids
 from paradis_torch.sphere.padding import geocyclic_pad
+from paradis_torch.sphere.partition import spatial_grid, spatial_rules
 
 EARTH_ROTATION_RATE = 7.29212e-5  # rad/s
 STATIC_DIM = 128  # static-encoder output width
@@ -101,6 +108,11 @@ def band_bound_pixels(band_bound_rad, lat_deg, coarsening_factor: int = 1):
     if spacing <= 0:
         return None
     return float(band_bound_rad) / float(spacing)
+
+
+def _in_grid(grid, layer, *args):
+    with spatial_rules(grid):
+        return layer(*args)
 
 
 class PhysicsLayer(nn.Module):
@@ -328,9 +340,14 @@ class Paradis(nn.Module):
         return self.static_sepconv2(x)
 
     def forward(self, fields: torch.Tensor) -> torch.Tensor:
+        """``fields`` ``[B, nlat, nlon, C_in]``; inside
+        ``sphere.partition.spatial_rules`` a rank's block of them, and the output
+        its block of the whole output."""
         H, W = self.mesh_size
-        if fields.shape[-3] != H or fields.shape[-2] != W:
-            raise ValueError(f"expected spatial dims {(H, W)}, got {tuple(fields.shape[-3:-1])}")
+        grid = spatial_grid()
+        h, w = (H, W) if grid is None else grid.block_shape(H, W)
+        if fields.shape[-3] != h or fields.shape[-2] != w:
+            raise ValueError(f"expected spatial dims {(h, w)}, got {tuple(fields.shape[-3:-1])}")
         fields = fields.to(self.dtype)
         hidden = self.input_proj(fields)
         hidden_static = self._static_encoder(fields[..., -self.n_static :])
@@ -342,8 +359,16 @@ class Paradis(nn.Module):
             context_fn = remat_context_fn(self.resolve_remat_policy())
         for layer in self.layers:
             if remat:
-                hidden = checkpoint(layer, hidden, hidden_static, self.lat_grid, self.lon_grid,
-                                    use_reentrant=False, context_fn=context_fn)
+                # on a rank's block the recomputation, which may run on the
+                # autograd engine's device thread, enters the grid itself, and
+                # runs to the layer's end, so that every rank issues the
+                # layer's collectives again
+                with (contextlib.nullcontext() if grid is None
+                      else set_checkpoint_early_stop(False)):
+                    hidden = checkpoint(layer if grid is None else
+                                        functools.partial(_in_grid, grid, layer),
+                                        hidden, hidden_static, self.lat_grid, self.lon_grid,
+                                        use_reentrant=False, context_fn=context_fn)
             else:
                 hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
         hidden = periodic_upsample(hidden, H, W) + skip

@@ -22,7 +22,8 @@ from paradis_torch.ops.interp_chunk import chunk_rows as resolve_chunk_rows
 from paradis_torch.ops.interp_cuda import interp
 from paradis_torch.ops.interp_dense import interp_dense
 from paradis_torch.sphere.geometry import rotated_to_latlon
-from paradis_torch.sphere.padding import geocyclic_pad
+from paradis_torch.sphere.padding import geocyclic_pad, geocyclic_pad_whole
+from paradis_torch.sphere.partition import spatial_grid
 
 INTERP_IMPLS = ("auto", "plain", "xla", "gather")
 # the JAX package's names of its kernel path: Paradis.set_interp_impl makes them auto
@@ -30,11 +31,35 @@ AUTO_ALIASES = ("pallas", "auto_train")
 
 
 def enforce_pole_continuity(x: torch.Tensor) -> torch.Tensor:
-    """Replace each pole row with its longitudinal mean (one value per channel)."""
+    """Replace each pole row with its longitudinal mean (one value per channel).
+
+    Inside ``sphere.partition.spatial_rules`` ``x`` is a rank's block: a polar
+    block's pole row takes the mean of the whole row, its float32 sum over
+    the space row over the whole width; other blocks are left as they are.
+    """
+    grid = spatial_grid()
+    if grid is not None:
+        return _pole_continuity_block(x, grid)
     W = x.shape[-2]
     south = x[..., :1, :, :].mean(dim=-2, keepdim=True).expand(*x.shape[:-3], 1, W, x.shape[-1])
     north = x[..., -1:, :, :].mean(dim=-2, keepdim=True).expand(*x.shape[:-3], 1, W, x.shape[-1])
     return torch.cat([south, x[..., 1:-1, :, :], north], dim=-3)
+
+
+def _pole_continuity_block(x: torch.Tensor, grid) -> torch.Tensor:
+    south, north = grid.l == 0, grid.l == grid.lat - 1
+    if not (south or north):
+        return x
+    rows = ([x[..., :1, :, :]] if south else []) + ([x[..., -1:, :, :]] if north else [])
+    width = x.shape[-2] * grid.space
+    sums = grid.sum_row(torch.cat(rows, dim=-3).float().sum(dim=-2, keepdim=True))
+    means = (sums / width).to(x.dtype).expand(*x.shape[:-3], len(rows), x.shape[-2],
+                                             x.shape[-1])
+    parts = [means[..., :1, :, :]] if south else []
+    parts.append(x[..., int(south): x.shape[-3] - int(north), :, :])
+    if north:
+        parts.append(means[..., -1:, :, :])
+    return torch.cat(parts, dim=-3)
 
 
 def departure_pixel_coords(u, v, dt: float, lat_grid: torch.Tensor, lon_grid: torch.Tensor,
@@ -43,10 +68,18 @@ def departure_pixel_coords(u, v, dt: float, lat_grid: torch.Tensor, lon_grid: to
 
     ``u``/``v`` are ``[B, H, W, V]`` latent velocities, ``lat_grid``/``lon_grid``
     ``[H, W]`` radians.  Returns float32 ``(pix_y, pix_x)`` shaped like ``u``.
+    Inside ``sphere.partition.spatial_rules`` ``u``/``v`` are a rank's block and
+    the grids whole: the points are the block's, in pixels of the whole grid
+    (its extent and size).
     """
     H, W = lat_grid.shape
-    lat_g = lat_grid.float()[None, :, :, None]
-    lon_g = lon_grid.float()[None, :, :, None]
+    lat_g, lon_g = lat_grid.float(), lon_grid.float()
+    grid = spatial_grid()
+    if grid is not None:  # the block's points; the extent and size stay the whole grid's
+        rows, cols = grid.rows(H), grid.cols(W)
+        lat_g, lon_g = lat_g[rows, cols], lon_g[rows, cols]
+    lat_g = lat_g[None, :, :, None]
+    lon_g = lon_g[None, :, :, None]
     lon_prime = -u.float() * dt
     lat_prime = -v.float() * dt
     lat_dep, lon_dep = rotated_to_latlon(lat_prime, lon_prime, lat_g, lon_g,
@@ -114,7 +147,7 @@ departure_positions.register_autograd(_positions_backward, setup_context=_positi
 
 def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
                 max_dy_pix: float | None = None, chunk_rows: int | None = None,
-                shift: int = 0):
+                shift: int = 0, row_pad: int | None = None):
     """Backend dispatch for the gather-interpolation, forward and backward.
 
     ``auto`` and ``plain`` go through the custom op ``paradis::interp``
@@ -135,7 +168,15 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
     when given, departure rows are clamped to ±``max_dy_pix`` of their
     arrival row (once, here; d_py is zero where the clamp binds).  Shift and
     clamp are the op ``paradis::departure_positions``, whose outputs are
-    what the interpolation consumes.  Where the band plan
+    what the interpolation consumes.  The arrival rows are the positions'
+    rows below the field's first ``row_pad`` rows (``(R - H) / 2`` unless
+    given: a rank's block of the whole padded field passes its own, its
+    first row's index in the field).  With ``row_pad`` given no band plan is
+    made: the banded kernels find a position's band from its place in the
+    positions, which a block's positions do not have; the unbanded (or
+    chunked) kernels take the clamped positions, and on them give the
+    banded pair's forward and ``d_py`` / ``d_px`` bitwise
+    (``interp_band.py``).  Where the band plan
     (``interp_band.band_spec``) then finds banding worth it, the pairing runs
     the row-banded kernels (or their plain versions).  Without a band plan,
     a chunk size (``chunk_rows``, else ``PARADIS_INTERP_CHUNK``, read on every
@@ -147,14 +188,17 @@ def interpolate(field, pix_y, pix_x, mode: str, impl: str = "auto",
         raise ValueError(f"advection impl must be one of {INTERP_IMPLS}, got {impl!r}")
     _, H, W, _ = pix_y.shape
     R = field.shape[1]
+    banded = max_dy_pix is not None and row_pad is None
+    if row_pad is None:
+        row_pad = (R - H) // 2
     if shift or max_dy_pix is not None:
-        pix_y, pix_x = departure_positions(pix_y, pix_x, shift, (R - H) // 2,
+        pix_y, pix_x = departure_positions(pix_y, pix_x, shift, row_pad,
                                            None if max_dy_pix is None else float(max_dy_pix))
     if impl == "xla":
         return interp_dense(field, pix_y, pix_x, mode)
     if impl == "gather":
         return interp_gather(field, pix_y, pix_x, mode)
-    spec = None if max_dy_pix is None else band_spec(H, W, R, mode, max_dy_pix)
+    spec = band_spec(H, W, R, mode, max_dy_pix) if banded else None
     rw = 0 if spec is not None else resolve_chunk_rows(R, chunk_rows)
     return interp(field, pix_y, pix_x, mode, impl == "plain", spec, rw)
 
@@ -188,10 +232,22 @@ class NeuralSemiLagrangian(nn.Module):
                                      hidden_dim=up_hidden, dtype=dtype, generator=generator)
 
     def forward(self, hidden, u, v, dt: float, lat_grid, lon_grid):
+        """Inside ``sphere.partition.spatial_rules`` (``hidden``, ``u``, ``v`` a
+        rank's block, the grids whole) departure points land anywhere, so
+        the down-projected field is gathered over the spatial group, padded
+        whole, and interpolated at the block's own points, as GSPMD does with
+        the Pallas call, whose operands it replicates.  The gather's adjoint
+        keeps the block of the field's cotangent summed over the ranks."""
         pad = 2 if self.interpolation == "bicubic" else 1
         proj = enforce_pole_continuity(self.down_projection(hidden))
         pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,
                                               fast_trig=self.fast_trig)
-        out = interpolate(geocyclic_pad(proj, pad), pix_y, pix_x, self.interpolation,
-                          self.impl, max_dy_pix=self.band_max_dy_pix, shift=pad)
+        grid = spatial_grid()
+        if grid is None:
+            field, row_pad = geocyclic_pad(proj, pad), None
+        else:
+            field = geocyclic_pad_whole(grid.gather(proj), pad)
+            row_pad = pad + grid.rows(lat_grid.shape[0]).start
+        out = interpolate(field, pix_y, pix_x, self.interpolation, self.impl,
+                          max_dy_pix=self.band_max_dy_pix, shift=pad, row_pad=row_pad)
         return self.up_projection(enforce_pole_continuity(out))

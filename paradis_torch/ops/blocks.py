@@ -8,6 +8,11 @@ Mixed precision follows the JAX package: parameters are float32, each module
 casts them to its compute ``dtype`` at use, except ``ChannelNorm`` and
 ``GlobalBias``, which compute in float32.  Every module draws its initial
 values from the ``torch.Generator`` it is built with.
+
+Inside ``sphere.partition.spatial_rules`` the layers run on a rank's block: the
+pads of ``SepConv`` and ``PhysicalDownsample`` exchange halos
+(``sphere/padding.py``) and ``GlobalBias`` takes the block's rows of ``U``
+and columns of ``V``; the rest is pointwise.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paradis_torch.sphere.padding import geocyclic_pad
+from paradis_torch.sphere.partition import spatial_grid
 
 
 def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
@@ -183,7 +189,11 @@ class GlobalBias(nn.Module):
             if bias_channels != output_dim else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        maps = torch.einsum("ck,kh,kw->hwc", self.A, self.U, self.V)
+        U, V = self.U, self.V
+        grid = spatial_grid()
+        if grid is not None:  # this rank's block of the maps
+            U, V = U[:, grid.rows(U.shape[1])], V[:, grid.cols(V.shape[1])]
+        maps = torch.einsum("ck,kh,kw->hwc", self.A, U, V)
         if self.projection is not None:
             maps = maps @ self.projection.t()
         return x + maps.to(x.dtype)
@@ -193,6 +203,9 @@ class PhysicalDownsample(nn.Module):
     """Anti-aliased downsample: geocyclic pad(2) + 5×5 mean, stride ``s``.
 
     Runs even at stride 1, where it is a 5×5 smoothing pass.  Sums in float32.
+    On a rank's block (``sphere.partition.spatial_rules``) the strided rows and
+    columns must start each block: a block's rows and columns are multiples
+    of the stride; other splits raise (ROADMAP.md, Queue 1 item 8e).
     """
 
     def __init__(self, stride: int = 4):
@@ -203,6 +216,12 @@ class PhysicalDownsample(nn.Module):
         out_dtype = x.dtype
         H, W = x.shape[-3], x.shape[-2]
         s = self.stride
+        grid = spatial_grid()
+        if grid is not None and s > 1 and (H % s or W % s):
+            raise ValueError(
+                f"compute.lat_devices={grid.lat} / spatial_devices={grid.space} give blocks "
+                f"of {H} x {W} points, which the downsample's stride {s} does not divide: "
+                f"the strided rows would not start every block (ROADMAP.md, Queue 1 item 8e)")
         h_out, w_out = (H - 1) // s + 1, (W - 1) // s + 1
         xf = geocyclic_pad(x, 2).float()
         rows = None

@@ -12,6 +12,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from paradis_torch.sphere.partition import spatial_grid, spatial_rules
+
 
 @lru_cache(maxsize=64)
 def linear_interp_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -44,7 +46,19 @@ def periodic_upsample(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Longitude-periodic upsample: append the first longitude column so the
     interpolation sees the 0°/360° wrap, resize to ``(out_h, out_w + 1)`` and
     drop the duplicated endpoint.  The identity when the shapes already match.
+
+    Inside ``sphere.partition.spatial_rules`` ``x`` is a rank's block of the
+    coarse field and the result its block of the ``(out_h, out_w)`` field:
+    the identity where the blocks already match, else the coarse field
+    gathered over the spatial group, resized whole and cut to the block.
     """
+    grid = spatial_grid()
+    if grid is not None:
+        if (x.shape[-3], x.shape[-2]) == grid.block_shape(out_h, out_w):
+            return x
+        with spatial_rules(None):
+            whole = periodic_upsample(grid.gather(x), out_h, out_w)
+        return grid.block(whole)
     if x.shape[-3] == out_h and x.shape[-2] == out_w:
         return x
     x_ext = torch.cat([x, x[..., :, :1, :]], dim=-2)

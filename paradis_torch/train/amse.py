@@ -7,8 +7,15 @@ decorrelation term ``2·max(PSD)·(1 − coherence)``: the transform in float32
 for m > 0, the top wavenumber dropped, coherence clipped to [0, 1] as
 ``jnp.clip`` does (``maximum`` then ``minimum``, so a tie passes half the
 gradient to each side, as in JAX), and a NaN loss replaced by 1e6 on the
-device, with no host sync.  On one device the JAX package's
-``constrain_spectral`` is a no-op, so it has no counterpart here.
+device, with no host sync.
+
+Inside ``sphere.partition.spatial_rules`` (a rank's block of the fields) the
+counterpart of the JAX package's ``constrain_spectral``: the blocks are
+gathered over the spatial group and each rank transforms its share of the
+channels (``RankGrid.spectral_share``: split over the spatial axes whose
+sizes divide them, else the whole field on every rank); the shares' sums
+are added over the group, each share counted once, so the loss and its
+gradient are the one-process ones.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from functools import lru_cache
 import torch
 
 from paradis_torch.ops.sht import RealSHT
+from paradis_torch.sphere.partition import spatial_grid
 
 _EPS = 1e-7
 
@@ -58,8 +66,19 @@ class AMSELoss:
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
                  weights: torch.Tensor | None = None) -> torch.Tensor:
-        p_coef = self.sht.analysis(pred.float())
-        t_coef = self.sht.analysis(target.float())
+        grid = spatial_grid()
+        pred, target = pred.float(), target.float()
+        channels, holders = pred.shape[-1], 1
+        if grid is not None:
+            # the transform needs whole rows and columns: the blocks gathered,
+            # this rank's share of the channels kept (constrain_spectral)
+            ways, index = grid.spectral_share(channels)
+            share = slice(index * channels // ways, (index + 1) * channels // ways)
+            pred, target = grid.gather(pred)[..., share], grid.gather(target)[..., share]
+            weights = None if weights is None else weights[share]
+            holders = grid.spatial // ways
+        p_coef = self.sht.analysis(pred)
+        t_coef = self.sht.analysis(target)
 
         psd_p, psd_t, cross = self._psd_and_cross(p_coef, t_coef)
 
@@ -72,5 +91,9 @@ class AMSELoss:
 
         if weights is not None:
             per_channel = per_channel * weights[None, :]
-        loss = per_channel.mean()
+        if grid is None:
+            loss = per_channel.mean()
+        else:  # each share once: the group's sum counts it on each of its holders
+            loss = grid.sum_replicated(
+                per_channel.sum() / (per_channel.shape[0] * channels * holders))
         return torch.where(torch.isnan(loss), loss.new_full((), 1e6), loss)

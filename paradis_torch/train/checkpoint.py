@@ -29,7 +29,10 @@ than one rank) by every rank, each its own file in ``state_sharded/``
 (``train/sharded_ckpt.py``, the counterpart of ``_is_cross_process_sharded``
 at ``paradis_tpu/train/checkpoint.py:30``).  In the middle of an
 accumulation window the ranks' gradients are first averaged over the ranks
-in place: the window's mean is what any world size resumes from.  Either
+in place: the window's mean is what any world size resumes from (over
+spatial axes each rank then goes on from its ``1/spatial`` share of it,
+``DataParallel.spread_gradients``, so that the window's average sums the
+shares back).  Either
 kind restores into a run of any world size, sharded or not, and
 ``load_params`` reads a sharded checkpoint's parameters in one process.
 
@@ -142,6 +145,8 @@ def load_state_dict(state, sd: dict) -> None:
                 continue  # released: its owner holds it
             p.copy_(sd["params"][name])
             p.grad = accum[name].to(p.device, p.dtype).clone() if name in accum else None
+    if accum and parallel is not None:
+        parallel.spread_gradients()
     state.step, state.micro_step = int(sd["step"]), int(sd["micro_step"])
 
 
@@ -184,14 +189,15 @@ class CheckpointManager:
             distributed.barrier()
             return
         distributed.barrier()
-        if not self.main:
-            return
-        if path.exists():
-            shutil.rmtree(path)
-        path.mkdir(parents=True)
-        write_file(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
-        if with_params:
-            save_params(path / PARAMS_FILE, state.model)
+        if self.main:
+            if path.exists():
+                shutil.rmtree(path)
+            path.mkdir(parents=True)
+            write_file(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
+            if with_params:
+                save_params(path / PARAMS_FILE, state.model)
+        if parallel is not None and parallel.active and mid_window:
+            parallel.spread_gradients()  # the window goes on
 
     def maybe_save_step(self, step: int, state) -> bool:
         if step % self.step_every != 0 or step == 0:

@@ -21,11 +21,12 @@ Over several ranks (a process group made by
 ``distributed.initialize_distributed``, as ``cli.train`` does), the run is
 data parallel, the counterpart of the JAX loop's mesh branch
 (``paradis_tpu/train/loop.py:88-112``): the global batch is
-``compute.batch_size × world``, each rank loads its rows of it, the train
-step averages the gradients and the metrics over the ranks
-(``distributed.DataParallel``; ``compute.fsdp`` shards the parameters and
-the optimizer state), and only rank 0 writes ``metrics.csv``, the run
-snapshot and the profiler trace.  Every host-side decision (the NaN check,
+``compute.batch_size × data`` (the ranks over the spatial axes,
+``distributed.rank_grid``), each data rank loads its rows of it, each
+spatial rank its block of them, the train step averages the gradients and
+the metrics over the ranks (``distributed.DataParallel``; ``compute.fsdp``
+shards the parameters and the optimizer state), and only rank 0 writes
+``metrics.csv``, the run snapshot and the profiler trace.  Every host-side decision (the NaN check,
 validation, early stopping, the plateau controller, checkpoint cadences)
 reads the ranks' averaged metrics, so all ranks take it alike and none waits
 in a collective that another has skipped.
@@ -88,7 +89,8 @@ class Trainer:
 
     def __init__(self, cfg, log_dir: str | None = None, device=None):
         self.cfg = cfg
-        self.world = distributed.data_parallel_size(cfg)  # raises before any batch
+        self.grid = distributed.rank_grid(cfg)  # raises before any batch
+        self.data = self.grid.data  # the data-parallel ranks
         self.rank = distributed.get_rank()
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -121,15 +123,18 @@ class Trainer:
             time_interval=cfg.dataset.sampling_interval,
             preload=bool(cfg.training.validation_dataset.preload),
         )
-        # the global batch: compute.batch_size is a rank's, as the reference's
-        bs = int(cfg.compute.batch_size) * self.world
-        rows = distributed.local_batch_slice(bs, self.rank, self.world)
+        # the global batch: compute.batch_size is a data rank's, as the
+        # reference's; a spatial rank loads its block of its data rank's rows
+        bs = int(cfg.compute.batch_size) * self.data
+        rows = distributed.local_batch_slice(bs, self.grid.d, self.data)
+        block = (None if self.grid.spatial == 1 else
+                 (self.grid.rows(self.train_ds.lat_size), self.grid.cols(self.train_ds.lon_size)))
         self.train_loader = BatchLoader(
             self.train_ds, bs, shuffle=True, seed=int(cfg.init.get("seed") or 0),
-            drop_last=True, device=self.device, rows=rows,
+            drop_last=True, device=self.device, rows=rows, block=block,
         )
         self.val_loader = BatchLoader(self.val_ds, bs, shuffle=False, drop_last=True,
-                                      device=self.device, rows=rows)
+                                      device=self.device, rows=rows, block=block)
 
         # -- model/loss/optimizer ---------------------------------------------
         ds = self.train_ds
@@ -159,7 +164,8 @@ class Trainer:
 
         # over ranks: replicated from rank 0, or sharded by whole parameter
         self.parallel = (distributed.DataParallel(self.model,
-                                                  fsdp=bool(cfg.compute.get("fsdp", False)))
+                                                  fsdp=bool(cfg.compute.get("fsdp", False)),
+                                                  grid=self.grid)
                          if distributed.is_initialized() else None)
         self.optimizer = build_optimizer(cfg, self.model, self.parallel)
 
@@ -296,7 +302,7 @@ class Trainer:
                                      refresh=False)
                     pbar.refresh()
                 if step % log_every == 0 or step == 1:
-                    bsz = batch["input"].shape[0] * self.world  # the global batch
+                    bsz = batch["input"].shape[0] * self.data  # the global batch
                     self.metrics.log(step, {
                         "train_loss": loss,
                         "lr": lr,

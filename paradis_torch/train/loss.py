@@ -7,7 +7,11 @@ geopotential under ``flip_geopotential_weights``); latitude area weights
 (unit mean) multiply along the grid's rows, except under ``amse``, whose
 spectral loss (``train/amse.py``) takes the feature weights alone.  The
 per-channel diagnostic stays pointwise (reversed Huber under ``amse``).  All
-loss math runs in float32.
+loss math runs in float32.  Inside ``sphere.partition.spatial_rules`` the fields
+are a rank's block: a mean is the block's sum over the whole field's count,
+summed over the spatial group, and the latitude weights are the whole
+grid's, cut to the block's rows (never the block's own, which
+``latitude_weights`` would renormalise).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from paradis_torch import resolve_device
 from paradis_torch.sphere.geometry import latitude_weights
+from paradis_torch.sphere.partition import spatial_grid, spatial_mean
 from paradis_torch.train.amse import AMSELoss
 
 _LEVEL_RE = re.compile(r"_h\d+$")
@@ -131,14 +136,20 @@ class WeightedLoss:
     def _weighted(self, loss: torch.Tensor) -> torch.Tensor:
         loss = loss * self.feature_weights
         if self.lat_weights is not None:
-            loss = loss * self.lat_weights[:, None, None]
+            lat_w = self.lat_weights
+            grid = spatial_grid()
+            if grid is not None:  # the whole grid's unit-mean weights, this block's rows
+                lat_w = lat_w[grid.rows(len(lat_w))]
+            loss = loss * lat_w[:, None, None]
         return loss
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        """Scalar weighted loss over ``[B, H, W, C]`` prediction and target."""
+        """Scalar weighted loss over ``[B, H, W, C]`` prediction and target
+        (inside ``sphere.partition.spatial_rules`` a rank's block of them, and the
+        whole field's loss, the same on every rank of the spatial group)."""
         if self.kind == "amse":
             return self.amse(pred, target, weights=self.feature_weights)
-        return self._weighted(self._pointwise(pred, target)).mean()
+        return spatial_mean(self._weighted(self._pointwise(pred, target)))
 
     def per_channel(self, pred: torch.Tensor, target: torch.Tensor,
                     weighted: bool = True) -> torch.Tensor:
@@ -146,4 +157,4 @@ class WeightedLoss:
         loss = self._pointwise(pred, target)
         if weighted:
             loss = self._weighted(loss)
-        return loss.mean(dim=(0, 1, 2))
+        return spatial_mean(loss, dim=(0, 1, 2))

@@ -15,7 +15,11 @@ the config names:
   norm-preserving rescale per matrix → decoupled weight decay.  The rest
   takes AdamW.  Matrices of one shape (the 8 physics layers' copies of each
   weight) are stacked into one batched Newton–Schulz call; each stays its
-  own matrix, as the JAX package's stacked per-layer leaves do.
+  own matrix, as the JAX package's stacked per-layer leaves do.  Over
+  several replicated ranks each rank orthogonalizes its share of a stack
+  and one ``all_reduce`` rebuilds it (distributed NorMuon,
+  ``sphere.partition.RankGrid.ns_share``, the counterpart of
+  ``constrain_ns_batch``).
 * ``training.gradient_clip_val``: a global-norm clip before either.
 
 The learning rate is a plain attribute that the host sets each step
@@ -30,6 +34,7 @@ restores each row into its own parameter's slot), and the host-set ``lr``.
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -38,6 +43,8 @@ import torch
 from torch import nn
 
 from paradis_torch.model.weights import flax_leaf
+
+log = logging.getLogger("paradis_torch")
 
 # Quintic Newton–Schulz coefficients (Jordan et al., Muon)
 _NS_COEFFS = (3.4445, -4.7750, 2.0315)
@@ -102,6 +109,7 @@ class _MuonGroup:
         n, dev = len(params), params[0].device
         self.momentum = torch.zeros((n, self.out, self.fan), device=dev)
         self.nu = torch.zeros((n, self.out), device=dev) if normuon else None
+        self.share = (1, 0, True, [])  # sphere.partition.RankGrid.ns_share of the stack
 
 
 class ParadisOptimizer:
@@ -115,7 +123,8 @@ class ParadisOptimizer:
                  betas: tuple[float, float], ns_steps: int = 5,
                  ns_dtype: torch.dtype = torch.bfloat16, clip: float | None = None,
                  names: set[str] | None = None,
-                 sum_across: Callable[[torch.Tensor], torch.Tensor] | None = None):
+                 sum_across: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                 grid=None):
         if name not in ("adamw", "muon", "normuon"):
             raise ValueError(f"Optimizer {name} not supported: adamw|muon|normuon")
         self.name, self.lr, self.weight_decay, self.betas = name, float(lr), weight_decay, betas
@@ -137,6 +146,18 @@ class ParadisOptimizer:
                 self.adamw_names.append(pname)
         self.muon_groups = [_MuonGroup([n for n, _ in group], [p for _, p in group],
                                        name == "normuon") for group in by_shape.values()]
+        # distributed NorMuon: each group's stack over the ranks of ``grid``
+        # (a sphere.partition.RankGrid, every rank holding every parameter)
+        self.grid = grid
+        if grid is not None:
+            world = grid.data * grid.spatial
+            for group in self.muon_groups:
+                n = len(group.params)
+                group.share = grid.ns_share(n)
+                ways, _, _, axes = group.share
+                if ways < world and n > 1:
+                    log.info("NS stack of %d matrices shards %d-way over %s (%d ranks; the "
+                             "other axes do not divide the stack)", n, ways, axes, world)
         self.adamw = (torch.optim.AdamW(adam, lr=self.lr, betas=betas, eps=_EPS,
                                         weight_decay=weight_decay) if adam else None)
 
@@ -285,7 +306,7 @@ class ParadisOptimizer:
         eff = grads + b1 * group.momentum                        # Nesterov
         # gram on the short side, as the JAX package orients [fan_in, out]
         side = "left" if group.out < group.fan else "right"
-        o = newton_schulz_batched(eff, self.ns_steps, side=side, dtype=self.ns_dtype)
+        o = self._orthogonalize(group, eff, side)
         o = o * math.sqrt(max(1.0, group.out / group.fan))
         if group.nu is not None:                                 # NorMuon
             ms = o.float().square().mean(dim=2)
@@ -298,6 +319,24 @@ class ParadisOptimizer:
         upd = [u.view_as(p) for u, p in zip(o.unbind(0), group.params)]
         upd = torch._foreach_add(upd, group.params, alpha=self.weight_decay)
         torch._foreach_add_(group.params, upd, alpha=-self.lr)
+
+
+    def _orthogonalize(self, group: _MuonGroup, eff: torch.Tensor, side: str) -> torch.Tensor:
+        """Newton–Schulz over the stack ``eff``; with a grid, this rank's
+        share of it, the shares rebuilt on every rank by one ``all_reduce``
+        of the stack (each share added by its lead copy, zeros elsewhere:
+        the sum is exact)."""
+        if self.grid is None or group.share[0] == 1:
+            return newton_schulz_batched(eff, self.ns_steps, side=side, dtype=self.ns_dtype)
+        ways, index, lead, _ = group.share
+        n = eff.shape[0]
+        lo, hi = index * n // ways, (index + 1) * n // ways
+        mine = newton_schulz_batched(eff[lo:hi], self.ns_steps, side=side, dtype=self.ns_dtype)
+        whole = torch.zeros_like(eff, dtype=mine.dtype)
+        if lead:
+            whole[lo:hi] = mine
+        torch.distributed.all_reduce(whole)
+        return whole
 
 
 def param_states_of(state: dict) -> dict:
@@ -321,7 +360,9 @@ def build_optimizer(cfg, model: nn.Module, parallel=None) -> ParadisOptimizer:
     rate (driven per step by the host through ``set_learning_rate``).
 
     ``parallel`` (a sharded ``distributed.DataParallel``) restricts it to the
-    parameters this rank owns, their gradient norm summed over the ranks."""
+    parameters this rank owns, their gradient norm summed over the ranks; a
+    replicated one over several ranks splits each Newton–Schulz stack over
+    its grid (distributed NorMuon)."""
     ocfg = cfg.training.optimizer
     clip = cfg.training.get("gradient_clip_val", None)
     ns_dtype = str(ocfg.get("ns_dtype", "bfloat16"))
@@ -334,7 +375,9 @@ def build_optimizer(cfg, model: nn.Module, parallel=None) -> ParadisOptimizer:
                             ns_steps=int(ocfg.get("ns_steps", 5)), ns_dtype=_DTYPES[ns_dtype],
                             clip=None if clip is None else float(clip),
                             **({"names": parallel.owned_names(), "sum_across": parallel.sum_}
-                               if parallel is not None and parallel.fsdp else {}))
+                               if parallel is not None and parallel.fsdp else
+                               {"grid": parallel.grid}
+                               if parallel is not None and parallel.active else {}))
 
 
 def set_learning_rate(optimizer: ParadisOptimizer, lr: float) -> None:

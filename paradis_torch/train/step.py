@@ -31,6 +31,7 @@ from torch import nn
 
 from paradis_torch.distributed import DataParallel, all_reduce_mean
 from paradis_torch.forecast.rollout import autoregress_next_input
+from paradis_torch.sphere.partition import spatial_mean, spatial_rules
 from paradis_torch.train.optim import ParadisOptimizer
 from paradis_torch.utils.normalization import denormalize_humidity, denormalize_precipitation
 
@@ -71,7 +72,13 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
     under the JAX mesh), and ``loss`` / ``loss_per_step`` (and the logged
     microstep gradients) are the ranks' mean, on the device.  Sharded
     (``compute.fsdp``), the parameters are gathered before the window's first
-    forward and released after the update.
+    forward and released after the update.  Over spatial axes
+    (``parallel.grid``) ``batch`` holds this rank's block of its rows, the
+    step runs inside ``sphere.partition.spatial_rules`` (the JAX
+    ``make_train_step(mesh=...)``), each rank's loss is the whole field's,
+    and the gradients are summed over the spatial group before the data
+    average (``DataParallel.average_gradients``), so every rank applies the
+    one update.
     """
     n_time = int(cfg.dataset.n_time_inputs)
     grad_accum = int(cfg.training.get("accumulate_grad_batches", 1))
@@ -79,9 +86,15 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
     deep_stats = bool(cfg.training.get("log_additional_stats", False))
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
 
+    grid = parallel.grid if parallel is not None else None
+
     def train_step(state: TrainState, batch: dict, num_common_features: int) -> dict:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the train state holds another model or optimizer than this step")
+        with spatial_rules(grid):
+            return _train_step(state, batch, num_common_features)
+
+    def _train_step(state: TrainState, batch: dict, num_common_features: int) -> dict:
         targets, forcings, constants = batch["target"], batch["forcings"], batch["constants"]
         S = targets.shape[1]
         seg = max(1, min(int(detach_every or S), S))
@@ -119,7 +132,8 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
             # gradient clip scales ``.grad`` in place
             grads = {n: (p.grad - before[n] if n in before else p.grad.clone())
                      for n, p in named if p.grad is not None}
-            metrics["grads"] = all_reduce_mean(grads) if parallel is not None else grads
+            metrics["grads"] = (all_reduce_mean(grads, parallel.grid.data)
+                                if parallel is not None else grads)
             diag0 = dict(zip(("channel_loss_weighted", "channel_loss_unweighted"), diag0))
             metrics.update(all_reduce_mean(diag0) if parallel is not None else diag0)
         state.micro_step += 1
@@ -153,6 +167,9 @@ def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None,
     report channel in physical units, over all steps.  Over several ranks
     (``parallel``) the loss and the mean squared errors are averaged over the
     ranks before the square root: the global batch's, as under the JAX mesh.
+    Over spatial axes each rank evaluates its block of its rows, inside
+    ``sphere.partition.spatial_rules``, and its loss and errors are the whole
+    field's.
     """
     n_time = int(cfg.dataset.n_time_inputs)
 
@@ -173,8 +190,14 @@ def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None,
             cols.append(col)
         return torch.stack(cols, dim=-1)
 
+    grid = parallel.grid if parallel is not None else None
+
     @torch.inference_mode()
     def eval_step(batch: dict, num_common_features: int) -> dict:
+        with spatial_rules(grid):
+            return _eval_step(batch, num_common_features)
+
+    def _eval_step(batch: dict, num_common_features: int) -> dict:
         targets, forcings, constants = batch["target"], batch["forcings"], batch["constants"]
         dyn = batch["input"]
         losses, mses = [], []
@@ -184,9 +207,12 @@ def make_eval_step(model: nn.Module, loss_fn, cfg, report: dict | None = None,
             if report is not None:
                 idx = torch.as_tensor(report["indices"], device=out.device)
                 lat_w = torch.as_tensor(report["lat_weights"], dtype=torch.float32,
-                                        device=out.device)[None, :, None, None]
+                                        device=out.device)
+                if grid is not None and grid.spatial > 1:
+                    lat_w = lat_w[grid.rows(len(lat_w))]
                 diff = denorm(out[..., idx].float()) - denorm(targets[:, t][..., idx].float())
-                mses.append((diff * diff * lat_w).mean(dim=(0, 1, 2)))
+                mses.append(spatial_mean(diff * diff * lat_w[None, :, None, None],
+                                         dim=(0, 1, 2)))
             dyn = autoregress_next_input(dyn, out, num_common_features, n_time)
         res = {"loss": torch.stack(losses).mean()}
         if report is not None:

@@ -3,8 +3,8 @@ on the CPU.
 
 The unit counterparts of ``tests/test_multihost.py:34-60`` (each rank's
 contiguous rows of the global batch), the settings that raise (a world-size
-mismatch, a spatial axis, a coordinator without a process group, ``auto``
-with two ranks on one card), the owner map of the sharded layout, the
+mismatch, a spatial axis wider than the launch, a coordinator without a
+process group, ``auto`` with two ranks on one card), the owner map of the sharded layout, the
 loader's rows against the one-process batches, the sharded checkpoint's
 checks and the optimizer state by name.  And the data-parallel train step
 against the JAX package's: two ranks over gloo on ``127.0.0.1``
@@ -137,13 +137,16 @@ def test_the_backend_for_each_setting(requested, device, local, count, want):
 @pytest.mark.parametrize("override,error", [
     ("compute.num_devices=2", ValueError), ("compute.num_nodes=3", ValueError),
     ("compute.coordinator_address=localhost:1234", ValueError),
-    ("compute.spatial_devices=2", NotImplementedError),
-    ("compute.lat_devices=2", NotImplementedError),
+    ("compute.spatial_devices=2", ValueError),
+    ("compute.lat_devices=2", ValueError),
 ])
 def test_settings_that_do_not_fit_the_launch_raise(override, error):
+    """In one process: more data ranks, or a spatial axis of 2 ranks, than
+    the one launched (the fit check; spatial runs:
+    ``tests/test_torch_spatial_multirank.py``)."""
     cfg = load_config(overrides=[override])
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else "multi-GPU"):
-        distributed.data_parallel_size(cfg)
+    with pytest.raises(error, match="multi-GPU"):
+        distributed.fit_check(cfg)
 
 
 def test_one_process_without_a_launcher_makes_no_process_group(monkeypatch):
@@ -152,7 +155,7 @@ def test_one_process_without_a_launcher_makes_no_process_group(monkeypatch):
     ranks = distributed.initialize_distributed(load_config(), "cpu")
     assert ranks == distributed.Ranks(0, 1, 0, torch.device("cpu"))
     assert not distributed.is_initialized() and distributed.world_size() == 1
-    assert distributed.data_parallel_size(load_config()) == 1
+    assert distributed.fit_check(load_config()) == (1, 1, 1)
     assert distributed.is_main_process()
     assert load_config().compute.dist_backend == "auto"
 

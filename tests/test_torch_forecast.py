@@ -317,10 +317,11 @@ def test_cli_forecast_on_the_cpu_writes_a_store_evaluate_scores(store, params_fi
 
 @pytest.mark.parametrize("how", ["num_devices_flag", "num_devices_config", "mesh"])
 def test_a_second_device_raises_before_any_file_is_written(store, params_file, tmp_path, how):
-    """Without the launcher one process runs: ``--num-devices 2`` or
-    ``compute.num_devices=2`` does not fit the launched world and raises; a
-    spatial mesh axis is not ported and raises in ``run_forecast`` (the
-    two-rank forecast: ``tests/test_torch_multirank.py``)."""
+    """Without the launcher one process runs: ``--num-devices 2``,
+    ``compute.num_devices=2`` or a spatial mesh axis of 2 ranks does not fit
+    the launched world and raises, the last in ``run_forecast`` (the
+    two-rank forecasts: ``tests/test_torch_multirank.py``,
+    ``tests/test_torch_spatial_multirank.py``)."""
     from paradis_torch.cli.forecast import main
 
     out = tmp_path / "fc.zarr"
@@ -331,7 +332,7 @@ def test_a_second_device_raises_before_any_file_is_written(store, params_file, t
         model = Paradis.from_config(cfg, input_dim=ds.num_in_features,
                                     output_dim=ds.num_out_features, lat_deg=ds.lat,
                                     lon_deg=ds.lon, device="cpu")
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="multi-GPU"):
             run_forecast(model, ds, cfg, ZarrForecastWriter(cfg, ds, str(out)),
                          BatchLoader(ds, 1, device="cpu"))
     else:

@@ -207,11 +207,11 @@ def test_restart_resumes_the_uninterrupted_run_bitwise(store, tmp_path):
                                       "compute.coordinator_address=localhost:1234"])
 def test_multi_device_settings_raise(store, tmp_path, override):
     """In one process started without the launcher: more devices than were
-    launched, or a coordinator without a process group, do not fit the run
-    (``ValueError``); a spatial axis is not ported (``NotImplementedError``).
-    Multi-rank runs: ``tests/test_torch_multirank.py``."""
+    launched (a spatial axis of 2 ranks too), or a coordinator without a
+    process group, do not fit the run (``ValueError``).  Multi-rank runs:
+    ``tests/test_torch_multirank.py``, ``tests/test_torch_spatial_multirank.py``."""
     key, value = override.split("=")
-    with pytest.raises((ValueError, NotImplementedError), match="multi-GPU"):
+    with pytest.raises(ValueError, match="multi-GPU"):
         _trainer(store, tmp_path, **{key: value})
     assert not (tmp_path / "metrics.csv").exists()
 

@@ -1,4 +1,5 @@
-"""One rank of a data-parallel train-step run, for the multi-rank tests.
+"""One rank of a data-parallel or spatial train-step run, for the
+multi-rank tests.
 
     python tests/torch_rank_worker.py IN.npz OUT.npz '{"overrides": [...], ...}'
 
@@ -7,13 +8,20 @@ Started once per rank with the launcher's environment (``RANK``,
 ``launch``), or alone without it for the one-process run.  ``IN.npz``
 holds the model's parameters (``param:<name>``) and the global batches
 (``batch<k>:<key>``, ``k`` from 0); the settings are the port's config
-overrides, ``device``, ``grid`` and ``fsdp``.  Each rank builds the model
-of the overrides on the grid (equiangular, without the poles), loads the
-parameters, takes one train step a batch on its rows of it
-(``distributed.local_batch_slice``) and rank 0 writes the losses, gradient
-norms, final parameters and every rank's launches of the interpolation
-kernels #1 and #2 to ``OUT.npz``.  No JAX: the ``gpu`` tests use it
-too.
+overrides (``compute.lat_devices`` / ``compute.spatial_devices`` among
+them for a spatial run), ``device``, ``grid`` and ``fsdp``.  Each rank
+builds the model of the overrides on the grid (equiangular, without the
+poles), loads the parameters, takes one train step a batch on its rows of
+it (``distributed.local_batch_slice`` by its data index) and, over spatial
+axes, its block of them (``RankGrid.block``), and rank 0 writes the losses,
+gradient norms, final parameters and every rank's launches of the
+interpolation kernels #1 and #2 to ``OUT.npz``.  No JAX: the ``gpu`` tests
+use it too.
+
+    python tests/torch_rank_worker.py ops OUT '{"lat": L, "space": S, "grid": [H, W]}'
+
+holds the spatial layers against their one-process selves on each rank of
+an ``L × S`` launch (``ops_main``).
 """
 
 from __future__ import annotations
@@ -103,7 +111,8 @@ def main(argv: list[str]) -> None:
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(torch.from_numpy(data[f"param:{name}"]))
-        parallel = (distributed.DataParallel(model, fsdp=settings.get("fsdp", False))
+        grid = distributed.rank_grid(cfg)
+        parallel = (distributed.DataParallel(model, fsdp=settings.get("fsdp", False), grid=grid)
                     if distributed.is_initialized() else None)
         opt = build_optimizer(cfg, model, parallel)
         loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
@@ -116,9 +125,11 @@ def main(argv: list[str]) -> None:
         while f"batch{k}:input" in data.files:
             batch = {key: torch.from_numpy(data[f"batch{k}:{key}"])
                      for key in ("input", "target", "forcings", "constants")}
-            rows = distributed.local_batch_slice(batch["input"].shape[0], ranks.rank,
-                                                 ranks.world)
-            batch = {key: v[rows].to(device) for key, v in batch.items()}
+            rows = distributed.local_batch_slice(batch["input"].shape[0], grid.d, grid.data)
+            batch = {key: v[rows] for key, v in batch.items()}
+            if grid.spatial > 1:
+                batch = {key: grid.block(v).contiguous() for key, v in batch.items()}
+            batch = {key: v.to(device) for key, v in batch.items()}
             m = step(state, batch, d["n_common"])
             for key in out:
                 out[key].append(m[key].detach().float().cpu().numpy())
@@ -142,5 +153,133 @@ def main(argv: list[str]) -> None:
         distributed.shutdown_distributed()
 
 
+def ops_main(argv: list[str]) -> None:
+    """``ops OUT '{"lat": L, "space": S, "grid": [H, W]}'``: each rank of an
+    ``L × S`` launch holds the spatial layers against their one-process
+    selves on the same seeded whole fields (made alike on every rank, each
+    rank taking its block) and writes what it found to ``OUT.rank<r>.json``:
+
+    * ``pad``: for pads 1, 2, 3, the sharded ``geocyclic_pad`` bitwise the
+      block of the whole field's pad, and its backward bitwise the adjoint of
+      cutting that block out of the whole pad (fields and cotangents of small
+      integers, so every sum of the adjoint is exact whatever its order);
+    * ``pole``, ``advection``, ``loss``: ``enforce_pole_continuity``, a
+      bicubic ``NeuralSemiLagrangian`` (plain path) and the latitude-weighted
+      reversed Huber loss, each output and gradient's largest gap to the one
+      process, as a share of the largest magnitude (parameter gradients
+      summed over the ranks);
+    * ``ns``: this grid's split Newton–Schulz stack against the redundant
+      one (largest gap).
+    """
+    import numpy as np
+    import torch
+
+    from paradis_torch import distributed
+    from paradis_torch.config import load_config
+    from paradis_torch.ops.advection import NeuralSemiLagrangian, enforce_pole_continuity
+    from paradis_torch.sphere.geometry import equiangular_lat_lon, latitude_weights, lonlat_grids
+    from paradis_torch.sphere.padding import geocyclic_pad, geocyclic_pad_whole
+    from paradis_torch.sphere.partition import spatial_rules
+    from paradis_torch.train.loss import WeightedLoss
+    from paradis_torch.train.optim import newton_schulz_batched
+
+    out, settings = Path(argv[0]), json.loads(argv[1])
+    lat, space = settings["lat"], settings["space"]
+    H, W = settings["grid"]
+    cfg = load_config(overrides=[f"compute.lat_devices={lat}",
+                                 f"compute.spatial_devices={space}"])
+    distributed.initialize_distributed(cfg, "cpu")
+    try:
+        grid = distributed.rank_grid(cfg)
+        rows, cols = grid.rows(H), grid.cols(W)
+        gen = torch.Generator().manual_seed(5)
+        res = {"rank": grid.spatial_index}
+
+        def rel(a, b):
+            a, b = a.detach(), b.detach()
+            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+        def run(fn, *whole, params=()):
+            """fn's output and gradients on the whole fields, and on this
+            rank's blocks inside spatial_rules: the gaps."""
+            ins = [x.clone().requires_grad_(True) for x in whole]
+            ref = fn(*ins)
+            ct = torch.randn(ref.shape, generator=gen) if ref.dim() else torch.tensor(1.0)
+            ref_grads = torch.autograd.grad((ref * ct).sum(), ins + list(params))
+            blk = [grid.block(x).clone().requires_grad_(True) for x in whole]
+            with spatial_rules(grid):
+                got = fn(*blk)
+            ct_blk = grid.block(ct) if ref.dim() else ct
+            grads = torch.autograd.grad((got * ct_blk).sum(), blk + list(params))
+            ref_out = grid.block(ref) if ref.dim() else ref
+            gaps = [rel(got, ref_out)]
+            gaps += [rel(g, grid.block(r)) for g, r in zip(grads[:len(blk)], ref_grads)]
+            for g, r in zip(grads[len(blk):], ref_grads[len(blk):]):
+                torch.distributed.all_reduce(g, group=grid.spatial_group)
+                gaps.append(rel(g, r))
+            return max(gaps)
+
+        # the pad, bitwise (small integers: every sum exact)
+        pads = {}
+        for pad in (1, 2, 3):
+            x = torch.randint(-8, 9, (2, H, W, 3), generator=gen).float()
+            ct = torch.randint(-8, 9, (2, H + 2 * pad, W + 2 * pad, 3), generator=gen).float()
+            h, w = rows.stop - rows.start, cols.stop - cols.start
+            window = (slice(None), slice(rows.start, rows.start + h + 2 * pad),
+                      slice(cols.start, cols.start + w + 2 * pad))
+            xw = x.clone().requires_grad_(True)
+            cover = torch.zeros_like(ct)  # the whole pad's cotangent from every block's window
+            for l_ in range(lat):
+                for s_ in range(space):
+                    cover[:, l_ * h:l_ * h + h + 2 * pad, s_ * w:s_ * w + w + 2 * pad] += 1
+            want = geocyclic_pad_whole(xw, pad)
+            (want * ct * cover).sum().backward()
+            xb = grid.block(x).clone().requires_grad_(True)
+            with spatial_rules(grid):
+                got = geocyclic_pad(xb, pad)
+            (got * ct[window]).sum().backward()
+            pads[pad] = [bool(torch.equal(got, want.detach()[window])),
+                         bool(torch.equal(xb.grad, grid.block(xw.grad)))]
+        res["pad"] = pads
+
+        lat_deg, lon_deg = equiangular_lat_lon(H, W, include_poles=False)
+        lat_g, lon_g = (torch.tensor(a, dtype=torch.float32) for a in
+                        lonlat_grids(np.deg2rad(lat_deg), np.deg2rad(lon_deg)))
+        res["pole"] = run(enforce_pole_continuity, torch.randn(2, H, W, 4, generator=gen))
+
+        adv = NeuralSemiLagrangian(8, 4, (H, W), interpolation="bicubic", generator=gen)
+        adv.impl = "plain"
+        res["advection"] = run(
+            lambda hid, u, v: adv(hid, u, v, 0.5, lat_g, lon_g),
+            torch.randn(2, H, W, 8, generator=gen), 0.3 * torch.randn(2, H, W, 4, generator=gen),
+            0.3 * torch.randn(2, H, W, 4, generator=gen), params=list(adv.parameters()))
+
+        loss = WeightedLoss(kind="reversed_huber",
+                            feature_weights=torch.rand(5, generator=gen) + 0.5,
+                            lat_weights=torch.tensor(latitude_weights(lat_deg),
+                                                     dtype=torch.float32))
+        res["loss"] = run(loss, torch.randn(2, H, W, 5, generator=gen),
+                          torch.randn(2, H, W, 5, generator=gen))
+
+        # distributed NorMuon: a stack of 12 divides every axis here
+        from paradis_torch.train.optim import ParadisOptimizer, _MuonGroup
+
+        stack = torch.randn(12, 16, 24, generator=gen)
+        opt = ParadisOptimizer.__new__(ParadisOptimizer)
+        opt.ns_steps, opt.ns_dtype, opt.grid = 5, torch.float32, grid
+        group = _MuonGroup.__new__(_MuonGroup)
+        group.share = grid.ns_share(12)
+        split = opt._orthogonalize(group, stack, "left")
+        whole = newton_schulz_batched(stack, 5, side="left", dtype=torch.float32)
+        res["ns"] = float((split - whole).abs().max())
+        res["ns_ways"] = group.share[0]
+        out.with_name(f"{out.name}.rank{grid.spatial_index}.json").write_text(json.dumps(res))
+    finally:
+        distributed.shutdown_distributed()
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if sys.argv[1] == "ops":
+        ops_main(sys.argv[2:])
+    else:
+        main(sys.argv[1:])
