@@ -185,6 +185,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``SPATIAL_FC_TOL`` of each variable's largest value of that phase's
    one-process store, #1 (the band's clamped positions; not #5) 8 times a
    step on each rank; the seconds a step beside the one process's.
+   ``[spatial-fsdp]``: after ``[spatial]``, one launch of 4 gloo ranks, (h)
+   ``cli.train`` with ``compute.fsdp=true compute.lat_devices=2`` (``data 2
+   × lat 2``), (e)'s configuration and global batch, ``MG_STEPS`` steps, a
+   sharded checkpoint after ``MG_FSDP_K``: each step's loss within
+   ``MG_LOSS_RTOL`` of (b), #1 and #2 8 times a step on each rank, one
+   shard a data rank written by the lead spatial position's ranks alone
+   and read back whole into the flagship; seconds a step beside (e)'s.
    ``[bench-pipeline]``, ``[roofline]``: what the process that prepared
    ``[export]`` ran after ``cli.export`` (``host_tools``):
    ``tools/bench_pipeline`` on [data]'s stores, the host path and with the
@@ -2796,8 +2803,8 @@ def rank_worker(argv: list[str]) -> int:
     one rank of a launch that ``torch.distributed.run`` started: for each run
     in turn the entry point's ``main(ARGS)`` (``cli.train`` or
     ``cli.forecast``: the launch's kind, or the run's own after ``--then``),
-    then the rank's launch counts of that run and the entry point's result
-    into ``OUT.rank<RANK>.json``.  The runs of one launch share its process
+    then the rank's launch counts of that run, the sharded checkpoint files
+    it wrote and the entry point's result into ``OUT.rank<RANK>.json``.  The runs of one launch share its process
     group: it is shut down after the last (a launch's process start, ~16 s,
     is paid once)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -2813,19 +2820,55 @@ def rank_worker(argv: list[str]) -> int:
             runs[-1][0] = arg
         else:
             runs[-1].append(arg)
+    from paradis_torch.train import checkpoint
+
+    written = []  # the files this rank writes through the checkpoint module
+    write_file = checkpoint.write_file
+
+    def recording_write(path, obj):
+        written.append(Path(path).name)
+        write_file(path, obj)
+
+    checkpoint.write_file = recording_write
     shutdown = distributed.shutdown_distributed
     for i, (run_kind, out, *args) in enumerate(runs):
         cli = train_cli if run_kind == "train" else forecast_cli
         distributed.shutdown_distributed = shutdown if i == len(runs) - 1 else (lambda: None)
         reset_counts()
+        written.clear()
         t0 = time.perf_counter()
         result = cli.main(args)
         rank = int(os.environ.get("RANK", "0"))
         out = Path(out)
         out.with_name(f"{out.name}.rank{rank}.json").write_text(json.dumps(
             {"rank": rank, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+             "shards_written": sorted({n for n in written if n.startswith("shard_p")}),
              "result": result}, default=float))
     return 0
+
+
+def free_port() -> int:
+    """A free port for a launch's store, drawn at random below the ephemeral
+    range: a port that ``bind(0)`` hands out and frees could be taken by a
+    socket that another launch's gloo binds to port 0 before this launch's
+    rank 0 binds its store, which would hang the launch."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.SystemRandom()
+    while True:
+        port = rng.randrange(10000, max(low, 10001))
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
 
 
 def torchrun(n: int, kind: str, runs: list, timeout: int = 400):
@@ -2835,11 +2878,7 @@ def torchrun(n: int, kind: str, runs: list, timeout: int = 400):
     waits for it and returns the launch's wall seconds and, for each run,
     each rank's record.  A rank's failure fails the phase (the launcher then
     stops the others and exits non-zero)."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     argv = []
     for i, (out, args, *run_kind) in enumerate(runs):
         argv += (["--then", *run_kind] if i else []) + [str(out), *args]
@@ -3063,6 +3102,80 @@ def finish_spatial(wait, root: Path, one: dict, fio_root: Path, fio_hr: dict) ->
     res["forecast"] = fc
     res["ok"] = res["ok"] and fc["ok"]
     return res
+
+
+def run_spatial_fsdp(lr_store: Path, root: Path, one: dict, lat2: dict) -> dict:
+    """``[spatial-fsdp]``: one launch of 4 gloo ranks sharing the card, after
+    ``[spatial]``'s (not beside ``[multi-gpu]``: the host's cores), (h)
+    ``cli.train`` with ``compute.fsdp=true compute.lat_devices=2`` (``data 2
+    × lat 2``) on ``[data]``'s 5.625° store as ``[multi-gpu]``'s runs, the
+    global batch of 2 (one row a data rank, its block on each lat rank),
+    ``MG_STEPS`` steps and a sharded step checkpoint after ``MG_FSDP_K``.
+    Gates: each step's loss within ``MG_LOSS_RTOL`` of ``[multi-gpu]``'s one
+    process with the batch of 2 (``one``); #1 and #2 8 times a step on each
+    rank (and #1 8 times a validation batch); the step checkpoint one shard
+    a data rank, ``shard_p0`` and ``shard_p1``, written by the ranks of the
+    lead spatial position (0 and 2) alone, its grid ``[2, 2, 1]``, and read
+    back whole into the flagship (``load_params``: every parameter, each
+    shape).  Seconds a step beside the replicated ``lat2`` run of
+    ``[spatial]`` (``lat2``)."""
+    import numpy as np
+
+    from paradis_torch.config import load_config
+    from paradis_torch.tools.flagship import flagship
+    from paradis_torch.train.checkpoint import load_params
+    from paradis_torch.train.sharded_ckpt import SHARD_DIR, read_sharded
+
+    k = MG_FSDP_K
+    wait = torchrun(4, "train", [(root / "fsdp_lat2", [
+        "--device", "cuda", f"dataset.root_dir={lr_store}", *LOOP_DATES, *TRAIN_OVERRIDES,
+        "training.log_every_n_steps=1", f"training.log_dir={root}",
+        "training.experiment_name=fsdp_lat2", f"training.max_steps={MG_STEPS}",
+        "compute.batch_size=1", "compute.dist_backend=gloo", "compute.fsdp=true",
+        "compute.lat_devices=2", f"training.checkpointing.step_every={k}"])])
+    run = wait()
+    ranks = run["runs"][0]
+    m = read_metrics(root / "fsdp_lat2" / "metrics.csv")
+    steps = sorted(m["train_loss"])
+    n_val = len(m.get("val_loss", {}))
+    losses = [m["train_loss"][s] for s in steps]
+    step_k = root / "fsdp_lat2" / "checkpoints" / "steps" / f"{k:08d}"
+    shards = sorted(p.name for p in (step_k / SHARD_DIR).iterdir())
+    saved = read_sharded(step_k / SHARD_DIR)
+    model, _ = flagship(load_config(overrides=TRAIN_OVERRIDES), (NLAT, NLON), "cpu")
+    t0 = time.perf_counter()
+    load_params(step_k, model)
+    r = {"launch_seconds": run["seconds"], "seconds": max(x["seconds"] for x in ranks),
+         "steps": steps, "losses": losses,
+         "loss_rel_gap": float(max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))),
+         "launches": [x["launches"] for x in ranks],
+         "shards": shards, "writers": [x["rank"] for x in ranks if x["shards_written"]],
+         "shards_written": [x["shards_written"] for x in ranks], "grid": saved["grid"],
+         "params_read": sum(v.numel() for v in saved["params"].values()),
+         "load_params_s": time.perf_counter() - t0,
+         "step_s": float(np.median([m["dt"][s] for s in steps[1:]])),
+         "lat2_step_s": lat2["step_s"], "one_step_s": lat2["one_step_s"]}
+    r["ok"] = (steps == one["steps"] and r["loss_rel_gap"] <= MG_LOSS_RTOL
+               and all(x == [8 * (len(steps) + n_val), 8 * len(steps), 0, 0, 0, 0]
+                       for x in r["launches"])
+               and shards == ["shard_p0.pt", "shard_p1.pt"] and r["writers"] == [0, 2]
+               and r["grid"] == [2, 2, 1] and saved["step"] == k
+               and r["params_read"] == sum(p.numel() for p in model.parameters()))
+    return r
+
+
+def report_spatial_fsdp(r: dict, card: str) -> None:
+    """``[spatial-fsdp]``'s lines; fails the phase on a failed gate."""
+    log("[spatial-fsdp] " + json.dumps(r))
+    if not r["ok"]:
+        raise SystemExit(f"the FSDP run on a spatial grid failed its checks: {r}")
+    log(f"[spatial-fsdp] fsdp data2 x lat2: 4 gloo ranks sharing the card, losses "
+        f"{[round(v, 6) for v in r['losses']]}, gap to one process {r['loss_rel_gap']:.3g} "
+        f"(limit {MG_LOSS_RTOL}), {r['step_s']:.3f} s a step against {r['lat2_step_s']:.3f} "
+        f"replicated on lat 2 ([spatial]) and {r['one_step_s']:.3f} in one process; "
+        f"launches #1/#2 a rank {[x[:2] for x in r['launches']]}; shards {r['shards']} "
+        f"written by ranks {r['writers']}, {r['params_read']} parameters read back; "
+        f"launch {r['launch_seconds']:.1f} s on {card}")
 
 
 def report_spatial(sp: dict, card: str) -> None:
@@ -3587,6 +3700,11 @@ def main() -> int:
     report_spatial(sp, card)
 
     phase_done("[spatial]")
+
+    # FSDP over a data x lat grid, alone: the two launches before hold the host's cores
+    report_spatial_fsdp(run_spatial_fsdp(lr_store, sp_root, mg["nccl"], sp["lat2"]), card)
+
+    phase_done("[spatial-fsdp]")
 
     # bench_pipeline and roofline --cost, run by the preparing process
     report_host_tools(wait_ready(Path(fio_dir.name) / TOOLS_READY, prep, "its host tools"),

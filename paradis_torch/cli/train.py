@@ -25,6 +25,13 @@ size 1 here):
 
     python -m torch.distributed.run --nproc-per-node 4 -m paradis_torch.cli.train \
         compute.lat_devices=2 compute.spatial_devices=2 compute.dist_backend=gloo ...
+
+and with ``compute.fsdp=true`` the parameters and the optimizer state
+sharded over the data ranks of each spatial position (here ``data 2 × lat
+2``; the sharded checkpoints written by the ``l = s = 0`` ranks):
+
+    python -m torch.distributed.run --nproc-per-node 4 -m paradis_torch.cli.train \
+        compute.fsdp=true compute.lat_devices=2 compute.dist_backend=gloo ...
 """
 
 from __future__ import annotations

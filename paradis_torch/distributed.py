@@ -14,10 +14,11 @@ the collectives are explicit:
   averages each parameter's gradient over the ranks once an applied step,
   in buckets, where JAX's psum falls out of jit;
 * ``compute.fsdp``: :class:`DataParallel` with ``fsdp=True`` shards the
-  parameters and the optimizer state by whole parameter (every parameter
-  has one owning rank, :func:`assign_owners`), the counterpart of
-  ``fsdp_shardings`` / ``shard_state``; ``train/sharded_ckpt.py`` saves
-  and restores that layout;
+  parameters and the optimizer state by whole parameter over the data
+  group (every parameter has one owning data index, :func:`assign_owners`,
+  the same at every spatial position), the counterpart of
+  ``fsdp_shardings`` / ``shard_state`` over the ``data`` axis;
+  ``train/sharded_ckpt.py`` saves and restores that layout;
 * the ``(lat, space)`` spatial axes (``compute.lat_devices``,
   ``compute.spatial_devices``): the ranks form a ``data × lat × space``
   grid in ``create_mesh``'s order, ``rank = (d·lat + l)·space + s``
@@ -29,7 +30,9 @@ the collectives are explicit:
   tensors too, so ranks sharing one card run the code of ranks on their own
   cards.  The gradients of a rank's block are summed over the spatial group
   and averaged over the data group by :class:`DataParallel`, in one
-  ``all_reduce`` over the world;
+  ``all_reduce`` over the world.  The coarse processor runs on the grid
+  that fits its field (``RankGrid.fit``: an axis that does not divide it is
+  collapsed);
 * distributed NorMuon: each rank orthogonalizes its share of a
   Newton–Schulz stack (``RankGrid.ns_share``, the counterpart of
   ``constrain_ns_batch``).
@@ -225,23 +228,45 @@ def contiguous_share(n: int, rank: int, world: int) -> tuple[int, int]:
     return lo, lo + per + (rank < extra)
 
 
-_GROUPS: dict[tuple[int, int, int], tuple[list, list]] = {}
+_GROUPS: dict[tuple[int, int, int], dict[str, list]] = {}
 
 
-def _grid_groups(data: int, lat: int, space: int) -> tuple[list, list]:
-    """The spatial groups (by ``d``) and the space rows (by ``(d, l)``),
-    made once a layout with ``dist.new_group``, which every rank calls for
-    every group, in the same order."""
+def grid_group_ranks(data: int, lat: int, space: int) -> dict[str, list[list[int]]]:
+    """The global ranks of each process group of the grid, in
+    ``create_mesh``'s order: the spatial groups (by ``d``), the space rows
+    (by ``(d, l)``), the lat columns (by ``(d, s)``) and the data groups (by
+    ``(l, s)``)."""
+    def rank(d, l, s):
+        return (d * lat + l) * space + s
+
+    return {
+        "spatial": [[rank(d, l, s) for l in range(lat) for s in range(space)]
+                    for d in range(data)],
+        "rows": [[rank(d, l, s) for s in range(space)] for d in range(data) for l in range(lat)],
+        "cols": [[rank(d, l, s) for l in range(lat)] for d in range(data) for s in range(space)],
+        "data": [[rank(d, l, s) for d in range(data)] for l in range(lat) for s in range(space)],
+    }
+
+
+def _grid_groups(data: int, lat: int, space: int) -> dict[str, list]:
+    """The process groups of :func:`grid_group_ranks`, made once a layout
+    with ``dist.new_group``, which every rank calls for every group, in the
+    same order; a list of ranks made before (a lat column that is the
+    spatial group, say) takes the group made for it, and a group of one
+    rank is None."""
     key = (data, lat, space)
     if key not in _GROUPS:
-        def make(ranks):
-            return dist.new_group(ranks) if len(ranks) > 1 else None
+        made = {}
 
-        spatial = [make([(d * lat + l) * space + s for l in range(lat) for s in range(space)])
-                   for d in range(data)]
-        rows = [make([(d * lat + l) * space + s for s in range(space)])
-                for d in range(data) for l in range(lat)]
-        _GROUPS[key] = (spatial, rows)
+        def make(ranks):
+            if len(ranks) < 2:
+                return None
+            if tuple(ranks) not in made:
+                made[tuple(ranks)] = dist.new_group(ranks)
+            return made[tuple(ranks)]
+
+        _GROUPS[key] = {name: [make(r) for r in lists]
+                        for name, lists in grid_group_ranks(data, lat, space).items()}
     return _GROUPS[key]
 
 
@@ -254,8 +279,9 @@ def rank_grid(cfg) -> RankGrid:
     l, s = divmod(rest, space)
     if lat * space == 1:
         return RankGrid(data, lat, space, d, l, s)
-    spatial, rows = _grid_groups(data, lat, space)
-    return RankGrid(data, lat, space, d, l, s, spatial[d], rows[d * lat + l])
+    g = _grid_groups(data, lat, space)
+    return RankGrid(data, lat, space, d, l, s, g["spatial"][d], g["rows"][d * lat + l],
+                    g["cols"][d * space + s], g["data"][l * space + s])
 
 
 def all_reduce_mean(x, divisor: int | None = None):
@@ -309,24 +335,29 @@ class DataParallel:
     bitwise the same.  The optimizer runs redundantly on every rank, as
     under the reference's Lightning DDP.
 
-    ``fsdp=True`` with more than one rank shards by whole parameter: each
-    parameter has one owning rank (:func:`assign_owners`), which alone keeps
-    its optimizer state and applies its update (NorMuon's Newton–Schulz then
-    runs on whole matrices, on their owner).  Between steps a rank holds
-    only its own parameters (:meth:`release`); :meth:`gather` broadcasts
-    each rank's parameters from it, once a step, before the forward.  After
-    the average a rank keeps only its own parameters' gradients.  This
-    layout needs only ``broadcast`` and ``all_reduce``, which gloo carries
-    on CUDA tensors, and keeps the parameters plain tensors, so the custom
-    ops, gradient checkpointing and the stacked Newton–Schulz run as on one
-    device.
+    ``fsdp=True`` with more than one data rank shards by whole parameter
+    over the data group (the ranks that share this rank's ``(l, s)``; all
+    ranks without spatial axes), as ``shard_state(fsdp=True)`` shards over
+    the ``data`` axis alone: each parameter has one owning data index
+    (:func:`assign_owners`), the same at every spatial position, whose rank
+    alone in its data group keeps the parameter's optimizer state and
+    applies its update (NorMuon's Newton–Schulz then runs on whole matrices,
+    on their owner).  The owners of one parameter at the ``lat × space``
+    spatial positions compute its update redundantly, on the same averaged
+    gradient, so they stay bitwise equal.  Between steps a rank holds only
+    its own parameters (:meth:`release`); :meth:`gather` broadcasts each
+    owner's parameters inside its data group, once a step, before the
+    forward.  After the average a rank keeps only its own parameters'
+    gradients.  This layout needs only ``broadcast`` and ``all_reduce``,
+    which gloo carries on CUDA tensors, and keeps the parameters plain
+    tensors, so the custom ops, gradient checkpointing and the stacked
+    Newton–Schulz run as on one device.
 
     ``grid`` (:func:`rank_grid`; all ranks data parallel when None): over
     spatial axes a rank's gradients are its block's share, so the average
     is the sum over the world divided by the data size (the sum over the
     spatial group, averaged over the data group); the replicated optimizer
-    then splits its Newton–Schulz stacks over the grid.  Sharding with
-    spatial axes is not ported (ROADMAP.md, Queue 1 item 8d) and raises.
+    then splits its Newton–Schulz stacks over the grid.
     """
 
     def __init__(self, model: torch.nn.Module, fsdp: bool = False,
@@ -334,58 +365,58 @@ class DataParallel:
         self.model = model
         self.world, self.rank = world_size(), get_rank()
         self.grid = grid if grid is not None else RankGrid(self.world, d=self.rank)
-        if fsdp and self.grid.spatial > 1:
-            raise NotImplementedError(
-                "compute.fsdp with compute.lat_devices / compute.spatial_devices above 1: "
-                "sharding the parameters over the data group of a spatial grid is not "
-                "ported (ROADMAP.md, Queue 1 item 8d)")
         self.active = is_initialized()
         self.named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        self.fsdp = bool(fsdp) and self.world > 1
-        owners = (assign_owners([p.numel() for _, p in self.named], self.world)
-                  if self.fsdp else [self.rank] * len(self.named))
-        self.owner = {n: r for (n, _), r in zip(self.named, owners)}
+        self.fsdp = bool(fsdp) and self.grid.data > 1
+        owners = (assign_owners([p.numel() for _, p in self.named], self.grid.data)
+                  if self.fsdp else [self.grid.d] * len(self.named))
+        self.owner = {n: d for (n, _), d in zip(self.named, owners)}  # data indices
         self.shapes = {n: p.shape for n, p in self.named}  # whole, also while released
         self._gathered = True
         if self.active:
             with torch.no_grad():
-                self._broadcast_from(0, list(self.shapes))
+                self._broadcast_from(0, list(self.shapes), None)
         self.release()
 
     def owns(self, name: str) -> bool:
-        return self.owner[name] == self.rank
+        return self.owner[name] == self.grid.d
 
     def owned_names(self) -> set[str]:
         return {n for n, _ in self.named if self.owns(n)}
 
     # -- parameters ----------------------------------------------------------------
 
-    def _broadcast_from(self, src: int, names: list[str]) -> None:
+    def _broadcast_from(self, src: int, names: list[str], group) -> None:
         """Broadcast the parameters ``names`` (each rank's same list) from
-        rank ``src`` in one flat buffer of each dtype; the receivers'
-        parameters become views of it."""
+        global rank ``src`` over ``group`` (None: the world) in one flat
+        buffer of each dtype; the receivers' parameters become views of
+        it."""
         params = dict(self.named)
         by_dtype: dict[torch.dtype, list] = {}
         for n in names:
             by_dtype.setdefault(params[n].dtype, []).append(n)
-        for dtype, group in by_dtype.items():
-            sizes = [self.shapes[n].numel() for n in group]
+        for dtype, group_names in by_dtype.items():
+            sizes = [self.shapes[n].numel() for n in group_names]
             if self.rank == src:
-                flat = torch.cat([params[n].data.reshape(-1) for n in group])
+                flat = torch.cat([params[n].data.reshape(-1) for n in group_names])
             else:
                 flat = torch.empty(sum(sizes), dtype=dtype, device=self.model.device)
-            dist.broadcast(flat, src=src)
+            dist.broadcast(flat, src=src, group=group)
             if self.rank != src:
-                for n, part in zip(group, flat.split(sizes)):
+                for n, part in zip(group_names, flat.split(sizes)):
                     params[n].data = part.view(self.shapes[n])
 
     def gather(self) -> None:
-        """Give every rank every parameter (sharded only; once a step)."""
+        """Give every rank every parameter (sharded only; once a step): each
+        owner broadcasts inside this rank's data group, from the global rank
+        of the owning data index at this rank's ``(l, s)``."""
         if not self.fsdp or self._gathered:
             return
         with torch.no_grad():
-            for r in range(self.world):
-                self._broadcast_from(r, [n for n, _ in self.named if self.owner[n] == r])
+            for d in range(self.grid.data):
+                self._broadcast_from(self.grid.rank_of(d),
+                                     [n for n, _ in self.named if self.owner[n] == d],
+                                     self.grid.data_group)
         self._gathered = True
 
     def release(self) -> None:
@@ -457,7 +488,9 @@ class DataParallel:
                                     self.grid.spatial)
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks, in place (sharded sums of squares)."""
-        if self.active:
-            dist.all_reduce(t)
+        """``t`` summed over the data group, in place (sharded sums of
+        squares: the data group holds each parameter once, where the world
+        holds it ``lat × space`` times)."""
+        if self.active and self.grid.data > 1:
+            dist.all_reduce(t, group=self.grid.data_group)
         return t

@@ -23,7 +23,11 @@ and ``ops/advection.py``).  Inside ``sphere.partition.spatial_rules`` the
 model runs on a rank's block of the grid (the JAX package's
 ``constrain_spatial`` points): its layers exchange halos, gather the
 advected field and average the pole rows over the ranks
-(``paradis_torch/distributed.py``); the grids stay whole buffers.
+(``paradis_torch/distributed.py``); the grids stay whole buffers.  The
+physics layers run on the grid that fits the coarse field: with
+``coarsening_factor`` above 1 an axis that does not divide it is collapsed
+(``RankGrid.fit``), and the downsample gathers where its stride does not
+start every block.
 """
 
 from __future__ import annotations
@@ -342,9 +346,13 @@ class Paradis(nn.Module):
     def forward(self, fields: torch.Tensor) -> torch.Tensor:
         """``fields`` ``[B, nlat, nlon, C_in]``; inside
         ``sphere.partition.spatial_rules`` a rank's block of them, and the output
-        its block of the whole output."""
+        its block of the whole output.  The physics layers run on the grid
+        that fits the coarse field (``RankGrid.fit``: the enclosing grid, or
+        it with an axis collapsed that does not divide the coarse field, as
+        ``constrain_spatial`` leaves such an axis unconstrained)."""
         H, W = self.mesh_size
         grid = spatial_grid()
+        proc = None if grid is None else grid.fit(*self.mesh_size_coarse)
         h, w = (H, W) if grid is None else grid.block_shape(H, W)
         if fields.shape[-3] != h or fields.shape[-2] != w:
             raise ValueError(f"expected spatial dims {(h, w)}, got {tuple(fields.shape[-3:-1])}")
@@ -360,16 +368,17 @@ class Paradis(nn.Module):
         for layer in self.layers:
             if remat:
                 # on a rank's block the recomputation, which may run on the
-                # autograd engine's device thread, enters the grid itself, and
-                # runs to the layer's end, so that every rank issues the
-                # layer's collectives again
+                # autograd engine's device thread, enters the processor's grid
+                # itself, and runs to the layer's end, so that every rank
+                # issues the layer's collectives again
                 with (contextlib.nullcontext() if grid is None
                       else set_checkpoint_early_stop(False)):
                     hidden = checkpoint(layer if grid is None else
-                                        functools.partial(_in_grid, grid, layer),
+                                        functools.partial(_in_grid, proc, layer),
                                         hidden, hidden_static, self.lat_grid, self.lon_grid,
                                         use_reentrant=False, context_fn=context_fn)
             else:
-                hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
-        hidden = periodic_upsample(hidden, H, W) + skip
+                with spatial_rules(proc):
+                    hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
+        hidden = periodic_upsample(hidden, H, W, proc) + skip
         return self.output_proj(hidden)

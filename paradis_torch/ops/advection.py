@@ -237,7 +237,10 @@ class NeuralSemiLagrangian(nn.Module):
         the down-projected field is gathered over the spatial group, padded
         whole, and interpolated at the block's own points, as GSPMD does with
         the Pallas call, whose operands it replicates.  The gather's adjoint
-        keeps the block of the field's cotangent summed over the ranks."""
+        keeps the block of the field's cotangent summed over the ranks.  Along
+        an axis that the grid has collapsed (``RankGrid.fit``) the block and
+        the departure points span the whole extent, and the gather, the pole
+        rows and the pad run over the other axis alone."""
         pad = 2 if self.interpolation == "bicubic" else 1
         proj = enforce_pole_continuity(self.down_projection(hidden))
         pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,

@@ -12,7 +12,8 @@ values from the ``torch.Generator`` it is built with.
 Inside ``sphere.partition.spatial_rules`` the layers run on a rank's block: the
 pads of ``SepConv`` and ``PhysicalDownsample`` exchange halos
 (``sphere/padding.py``) and ``GlobalBias`` takes the block's rows of ``U``
-and columns of ``V``; the rest is pointwise.
+and columns of ``V`` (all of them along an axis that the grid of the
+enclosing rules has collapsed, ``RankGrid.fit``); the rest is pointwise.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paradis_torch.sphere.padding import geocyclic_pad
-from paradis_torch.sphere.partition import spatial_grid
+from paradis_torch.sphere.partition import spatial_grid, spatial_rules
 
 
 def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
@@ -203,9 +204,13 @@ class PhysicalDownsample(nn.Module):
     """Anti-aliased downsample: geocyclic pad(2) + 5×5 mean, stride ``s``.
 
     Runs even at stride 1, where it is a 5×5 smoothing pass.  Sums in float32.
-    On a rank's block (``sphere.partition.spatial_rules``) the strided rows and
-    columns must start each block: a block's rows and columns are multiples
-    of the stride; other splits raise (ROADMAP.md, Queue 1 item 8e).
+    On a rank's block (``sphere.partition.spatial_rules``) the output is the
+    rank's block of the whole output on ``RankGrid.fit``'s grid of it.  Where
+    the strided rows and columns start every block (a block's extent along
+    each split axis a multiple of the stride) the block is downsampled in
+    place, its pad's halos exchanged; else the whole field is gathered over
+    the spatial group, downsampled whole and cut to the block (the gather's
+    adjoint sums each rank's share of the cotangent).
     """
 
     def __init__(self, stride: int = 4):
@@ -217,11 +222,10 @@ class PhysicalDownsample(nn.Module):
         H, W = x.shape[-3], x.shape[-2]
         s = self.stride
         grid = spatial_grid()
-        if grid is not None and s > 1 and (H % s or W % s):
-            raise ValueError(
-                f"compute.lat_devices={grid.lat} / spatial_devices={grid.space} give blocks "
-                f"of {H} x {W} points, which the downsample's stride {s} does not divide: "
-                f"the strided rows would not start every block (ROADMAP.md, Queue 1 item 8e)")
+        if grid is not None and ((grid.lat > 1 and H % s) or (grid.space > 1 and W % s)):
+            with spatial_rules(None):
+                whole = self(grid.gather(x))
+            return grid.fit(whole.shape[-3], whole.shape[-2]).block(whole)
         h_out, w_out = (H - 1) // s + 1, (W - 1) // s + 1
         xf = geocyclic_pad(x, 2).float()
         rows = None

@@ -12,7 +12,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from paradis_torch.sphere.partition import spatial_grid, spatial_rules
+from paradis_torch.sphere.partition import RankGrid, spatial_grid, spatial_rules
 
 
 @lru_cache(maxsize=64)
@@ -42,22 +42,26 @@ def bilinear_resize_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     return torch.einsum("ow,...hwc->...hoc", wx, y)
 
 
-def periodic_upsample(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def periodic_upsample(x: torch.Tensor, out_h: int, out_w: int,
+                      source: RankGrid | None = None) -> torch.Tensor:
     """Longitude-periodic upsample: append the first longitude column so the
     interpolation sees the 0°/360° wrap, resize to ``(out_h, out_w + 1)`` and
     drop the duplicated endpoint.  The identity when the shapes already match.
 
     Inside ``sphere.partition.spatial_rules`` ``x`` is a rank's block of the
-    coarse field and the result its block of the ``(out_h, out_w)`` field:
-    the identity where the blocks already match, else the coarse field
-    gathered over the spatial group, resized whole and cut to the block.
+    coarse field on ``source`` (the grid that fits the coarse field,
+    ``RankGrid.fit``; the enclosing grid when None) and the result its block
+    of the ``(out_h, out_w)`` field on the enclosing grid: the identity where
+    the whole fields' shapes match, else the coarse field gathered over
+    ``source``'s group, resized whole and cut to the block.
     """
     grid = spatial_grid()
     if grid is not None:
-        if (x.shape[-3], x.shape[-2]) == grid.block_shape(out_h, out_w):
+        source = grid if source is None else source
+        if (x.shape[-3] * source.lat, x.shape[-2] * source.space) == (out_h, out_w):
             return x
         with spatial_rules(None):
-            whole = periodic_upsample(grid.gather(x), out_h, out_w)
+            whole = periodic_upsample(source.gather(x), out_h, out_w)
         return grid.block(whole)
     if x.shape[-3] == out_h and x.shape[-2] == out_w:
         return x

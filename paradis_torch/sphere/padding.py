@@ -11,6 +11,9 @@ halos come from the blocks above and below, the pole mirror from the polar
 blocks' rows across the space row (the 180° roll moves columns between
 ranks), and the longitude halos from the periodic ring of the row-padded
 blocks, taken after the rows as below, so the corners come out right.
+Along an axis that the grid has collapsed (``RankGrid.fit``: the grid has
+one rank along it and the block its whole extent) the longitude wraps, or
+the pole rows mirror, within the block.
 """
 
 from __future__ import annotations

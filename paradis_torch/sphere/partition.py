@@ -14,6 +14,12 @@ field and the losses sum over the spatial group; outside it every function
 is the one-process function.  The layers import this module and no more of
 the ranks (the serving export imports the layers without the process
 groups).
+
+A grid whose axes do not divide a field (the coarse grid of a
+``model.coarsening_factor`` above 1) runs it on :meth:`RankGrid.fit`'s grid,
+where each such axis is collapsed: its ranks hold the whole extent along it
+and compute it alike, as ``constrain_spatial`` leaves an axis that does not
+divide a dimension unconstrained (``paradis_tpu/distributed.py:160-190``).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 import torch.distributed as dist
@@ -87,8 +93,12 @@ class RankGrid:
     """This rank's place ``(d, l, s)`` in the ``data × lat × space`` grid of
     ranks (``rank = (d·lat + l)·space + s``, the order of the JAX
     ``create_mesh``), and the process groups of its spatial group (the
-    ``lat × space`` ranks of its ``d``) and of its space row (the ``space``
-    ranks of its ``(d, l)``); None where a group has one rank."""
+    ``lat × space`` ranks of its ``d``), of its space row (the ``space``
+    ranks of its ``(d, l)``), of its lat column (the ``lat`` ranks of its
+    ``(d, s)``) and of its data group (the ``data`` ranks of its ``(l, s)``,
+    over which ``compute.fsdp`` shards); None where a group has one rank,
+    and the data group also where it is the whole world (no spatial axis:
+    the default group)."""
 
     data: int = 1
     lat: int = 1
@@ -98,6 +108,8 @@ class RankGrid:
     s: int = 0
     spatial_group: object = field(default=None, compare=False, repr=False)
     row_group: object = field(default=None, compare=False, repr=False)
+    col_group: object = field(default=None, compare=False, repr=False)
+    data_group: object = field(default=None, compare=False, repr=False)
 
     @property
     def spatial(self) -> int:
@@ -111,6 +123,32 @@ class RankGrid:
     def lead(self) -> bool:
         """The first rank of its spatial group (the one that writes)."""
         return self.l == 0 and self.s == 0
+
+    def rank_of(self, d: int) -> int:
+        """The global rank at data index ``d`` and this rank's ``(l, s)``: the
+        member ``d`` of its data group."""
+        return (d * self.lat + self.l) * self.space + self.s
+
+    def fit(self, H: int, W: int) -> "RankGrid":
+        """The grid that runs on a whole field of ``H × W`` points: this one
+        where its axes divide them, else this one with each axis that does
+        not divide its dimension collapsed (the coarse processor's grid).
+        The ranks along a collapsed axis each hold the whole extent along it
+        and compute it alike, and the collectives run over the other axis
+        alone: the space row where ``lat`` is collapsed, the lat column
+        where ``space`` is, none where both are.  A rank's share of a
+        cotangent stays its own along a collapsed axis, and the gather back
+        to the fine grid (``gather``'s adjoint) sums the shares."""
+        lat_fits, space_fits = H % self.lat == 0, W % self.space == 0
+        if lat_fits and space_fits:
+            return self
+        lat, l = (self.lat, self.l) if lat_fits else (1, 0)
+        space, s = (self.space, self.s) if space_fits else (1, 0)
+        return replace(self, lat=lat, space=space, l=l, s=s,
+                       spatial_group=(self.col_group if lat > 1 else
+                                      self.row_group if space > 1 else None),
+                       row_group=self.row_group if space > 1 else None,
+                       col_group=self.col_group if lat > 1 else None)
 
     def rows(self, H: int) -> slice:
         """This rank's rows of a grid of ``H`` latitudes."""

@@ -25,7 +25,8 @@ Over several ranks every rank calls the manager's methods, in the same
 order (their decisions come from the host-mirrored step and the ranks'
 averaged validation loss).  A replicated state is saved by rank 0 after a
 barrier, as one ``state.pt``; a sharded state (``compute.fsdp`` on more
-than one rank) by every rank, each its own file in ``state_sharded/``
+than one data rank) by every data rank, each its own file in
+``state_sharded/``, written by the lead spatial position of its data group
 (``train/sharded_ckpt.py``, the counterpart of ``_is_cross_process_sharded``
 at ``paradis_tpu/train/checkpoint.py:30``).  In the middle of an
 accumulation window the ranks' gradients are first averaged over the ranks
@@ -187,15 +188,15 @@ class CheckpointManager:
             distributed.barrier()
             save_sharded(path / SHARD_DIR, state, with_accum=mid_window)
             distributed.barrier()
-            return
-        distributed.barrier()
-        if self.main:
-            if path.exists():
-                shutil.rmtree(path)
-            path.mkdir(parents=True)
-            write_file(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
-            if with_params:
-                save_params(path / PARAMS_FILE, state.model)
+        else:
+            distributed.barrier()
+            if self.main:
+                if path.exists():
+                    shutil.rmtree(path)
+                path.mkdir(parents=True)
+                write_file(path / STATE_FILE, state_dict(state, self.accumulate_grad_batches))
+                if with_params:
+                    save_params(path / PARAMS_FILE, state.model)
         if parallel is not None and parallel.active and mid_window:
             parallel.spread_gradients()  # the window goes on
 

@@ -412,7 +412,7 @@ class Trainer:
         grads, sum_across = m["grads"], None
         if self.parallel is not None and self.parallel.fsdp:
             # each rank's own parameters (and their optimizer moments), the
-            # sums added over the ranks
+            # sums added over the data group (which holds each one once)
             grads = {n: g for n, g in grads.items() if self.parallel.owns(n)}
             sum_across = self.parallel.sum_
         stats = grad_statistics(grads, self.model, self.optimizer, sum_across=sum_across)

@@ -360,9 +360,11 @@ def build_optimizer(cfg, model: nn.Module, parallel=None) -> ParadisOptimizer:
     rate (driven per step by the host through ``set_learning_rate``).
 
     ``parallel`` (a sharded ``distributed.DataParallel``) restricts it to the
-    parameters this rank owns, their gradient norm summed over the ranks; a
-    replicated one over several ranks splits each Newton–Schulz stack over
-    its grid (distributed NorMuon)."""
+    parameters this rank owns, their gradient norm summed over its data
+    group (over spatial axes the owners at each position update their
+    parameters alike, on whole Newton–Schulz stacks); a replicated one over
+    several ranks splits each Newton–Schulz stack over its grid
+    (distributed NorMuon)."""
     ocfg = cfg.training.optimizer
     clip = cfg.training.get("gradient_clip_val", None)
     ns_dtype = str(ocfg.get("ns_dtype", "bfloat16"))

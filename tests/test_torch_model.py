@@ -35,21 +35,29 @@ CASES = {
                                       "model.coarsening_factor=2"], jnp.float32, 5e-6),
     "bicubic-fast-bf16": (["model.adv_interpolation=bicubic",
                            "compute.fast_departure_trig=true"], jnp.bfloat16, 3e-2),
+    "bicubic-fast-fp32-coarsen3": (["model.adv_interpolation=bicubic",
+                                    "compute.fast_departure_trig=true",
+                                    "model.coarsening_factor=3"], jnp.float32, 5e-6),
 }
+# a case's grid where it is not the file's: 3 must divide the longitudes
+# (both packages size the processor's GlobalBias W // s, the downsample
+# gives (W - 1) // s + 1 columns)
+GRIDS = {"bicubic-fast-fp32-coarsen3": (22, 24)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_matches_jax(case):
     overrides, dtype, atol = CASES[case]
-    pair = build_pair(*overrides, dtype=dtype)
+    nlat, nlon = GRIDS.get(case, (NLAT, NLON))
+    pair = build_pair(*overrides, dtype=dtype, nlat=nlat, nlon=nlon)
     # large enough inputs that departure points move by whole pixels
     x = np.random.default_rng(1).normal(
-        scale=2.0, size=(2, NLAT, NLON, pair.input_dim)).astype(np.float32)
+        scale=2.0, size=(2, nlat, nlon, pair.input_dim)).astype(np.float32)
     ref = as_f32(jax.jit(pair.jax_model.apply)(pair.params, jnp.asarray(x)))
     with torch.no_grad():
         out = pair.model(torch.from_numpy(x))
     assert out.dtype == (torch.float32 if dtype == jnp.float32 else torch.bfloat16)
     out = as_f32(out)
-    assert out.shape == ref.shape == (2, NLAT, NLON, pair.output_dim)
+    assert out.shape == ref.shape == (2, nlat, nlon, pair.output_dim)
     assert ref.std() > 1e-2  # a comparison of near-zero outputs would prove little
     np.testing.assert_allclose(out, ref, atol=atol, rtol=0)

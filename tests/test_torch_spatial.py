@@ -3,9 +3,14 @@ on the CPU: its units in one process, and one spatial train step against the
 JAX package's mesh step.
 
 * the rank order of ``create_mesh``'s ``reshape(data, lat, space)``, the
-  blocks of a grid and the settings that do not fit (a world-size mismatch,
-  a grid the factors do not divide, a pad a block cannot hold, FSDP over a
-  spatial grid, a downsample stride that does not start every block);
+  blocks of a grid, its process groups' ranks (the spatial groups, space
+  rows, lat columns and data groups) and the settings that do not fit (a
+  world-size mismatch, a grid the factors do not divide, a pad a block
+  cannot hold);
+* FSDP over a spatial grid (``DataParallel(fsdp=True, grid=...)``): the
+  owners, data indices, are the same at every spatial position; a
+  downsample stride that does not start every block runs, and
+  ``RankGrid.fit`` collapses the axes that do not divide a coarse grid;
 * the shares of distributed NorMuon (``RankGrid.ns_share``, the rule of
   ``paradis_tpu/distributed.py:96-111``) and of the AMSE transform's
   channels (``RankGrid.spectral_share``, ``:116-157``), and the log of a
@@ -77,13 +82,80 @@ def test_a_grid_that_does_not_fit_the_launch_raises(override):
         distributed.fit_check(load_config(overrides=[override]))
 
 
+def test_the_process_groups_take_the_ranks_of_create_mesh():
+    """Each group's ranks are a line of ``reshape(data, lat, space)``: the
+    spatial group a ``d``'s plane, the space row an ``(d, l)``'s, the lat
+    column a ``(d, s)``'s, the data group an ``(l, s)``'s, in that order,
+    and ``RankGrid.rank_of`` is a data group's member at the rank's place."""
+    places = np.arange(2 * 2 * 3).reshape(2, 2, 3)
+    groups = distributed.grid_group_ranks(2, 2, 3)
+    assert groups["spatial"] == [places[d].ravel().tolist() for d in range(2)]
+    assert groups["rows"] == [places[d, l].tolist() for d in range(2) for l in range(2)]
+    assert groups["cols"] == [places[d, :, s].tolist() for d in range(2) for s in range(3)]
+    assert groups["data"] == [places[:, l, s].tolist() for l in range(2) for s in range(3)]
+    for d, l, s in np.ndindex(2, 2, 3):
+        grid = RankGrid(2, 2, 3, d, l, s)
+        assert [grid.rank_of(k) for k in range(2)] == places[:, l, s].tolist()
+
+
 def test_fsdp_over_a_spatial_grid_raises():
-    model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distributed.DataParallel(model, fsdp=True, grid=RankGrid(1, 2, 1))
+    """No longer raises: ``DataParallel(fsdp=True)`` on a ``data 2 × lat 2 ×
+    space 2`` grid shards over the data group, the owning data index of
+    each parameter the same at every ``(l, s)``, each parameter owned once
+    a data group; with one data rank the layout is replicated."""
+    from paradis_torch.tools.bench_artifact import flagship
+
+    net, _ = flagship(load_config(overrides=TINY), (8, 16), "cpu")
+    names = {n for n, p in net.named_parameters() if p.requires_grad}
+    owners, owned = set(), {}
+    for d, l, s in np.ndindex(2, 2, 2):
+        model, _ = flagship(load_config(overrides=TINY), (8, 16), "cpu")
+        par = distributed.DataParallel(model, fsdp=True, grid=RankGrid(2, 2, 2, d, l, s))
+        assert par.fsdp and par.grid.spatial == 4
+        owners.add(tuple(sorted(par.owner.items())))
+        owned.setdefault(d, set()).add(frozenset(par.owned_names()))
+        # released: a rank holds only the parameters it owns
+        held = {n for n, p in model.named_parameters() if p.numel()}
+        assert held == par.owned_names()
+    assert len(owners) == 1
+    assert all(len(v) == 1 for v in owned.values())
+    a, b = (next(iter(owned[d])) for d in (0, 1))
+    assert a and b and not a & b and a | b == names
+    one = distributed.DataParallel(flagship(load_config(overrides=TINY), (8, 16), "cpu")[0],
+                                   fsdp=True, grid=RankGrid(1, 2, 2, 0, 1, 0))
+    assert not one.fsdp and one.owned_names() == names
 
 
-def test_a_pad_a_block_cannot_hold_and_an_unaligned_stride_raise():
+@pytest.mark.parametrize("grid,coarse,want,group", [
+    # (data, lat, space), the coarse grid, the processor's (lat, space), its group
+    ((1, 2, 2), (8, 8), (2, 2), "spatial"),     # 22 x 24, s = 3: coarse rows 4 + 4
+    ((2, 2, 1), (3, 4), (1, 1), None),          # 8 x 12, s = 3 on lat 2: rows undivided
+    ((1, 1, 4), (4, 6), (1, 1), None),          # 8 x 12, s = 2 on space 4
+    ((1, 2, 2), (3, 4), (1, 2), "row"),         # 8 x 12, s = 3: lat collapsed
+    ((1, 2, 3), (6, 4), (2, 1), "col"),         # 16 x 12, s = 3: space collapsed
+])
+def test_the_processor_grid_collapses_the_axes_that_do_not_divide_the_coarse_grid(
+        grid, coarse, want, group):
+    groups = {"spatial": object(), "row": object(), "col": object(), "data": object()}
+    data, lat, space = grid
+    for d, l, s in np.ndindex(*grid):
+        g = RankGrid(data, lat, space, d, l, s, groups["spatial"], groups["row"],
+                     groups["col"], groups["data"])
+        proc = g.fit(*coarse)
+        assert (proc.lat, proc.space) == want
+        assert proc.spatial_group is (groups[group] if group else None)
+        assert proc.data_group is groups["data"] and proc.d == d
+        assert (proc.l, proc.s) == (l if want[0] > 1 else 0, s if want[1] > 1 else 0)
+        h, w = coarse[0] // proc.lat, coarse[1] // proc.space
+        assert proc.block_shape(*coarse) == (h, w)
+
+
+def test_a_pad_a_block_cannot_hold_and_an_unaligned_stride_raise(monkeypatch):
+    """The pads a block cannot hold raise.  A downsample stride that does not
+    start every block runs: the block's field gathered whole (here, with no
+    other rank, the ``all_reduce`` leaves the other blocks zero),
+    downsampled whole and cut to the block of ``RankGrid.fit``'s grid of
+    the coarse field (3 × 4: ``lat`` collapsed, ``space`` kept)."""
     from paradis_torch.ops.blocks import PhysicalDownsample
     from paradis_torch.sphere.padding import geocyclic_pad
 
@@ -92,8 +164,15 @@ def test_a_pad_a_block_cannot_hold_and_an_unaligned_stride_raise():
             geocyclic_pad(torch.zeros(1, 3, 8, 1), 3)
         with pytest.raises(ValueError, match="pad <= W/spatial_devices"):
             geocyclic_pad(torch.zeros(1, 8, 2, 1), 3)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            PhysicalDownsample(stride=4)(torch.zeros(1, 6, 8, 1))
+    monkeypatch.setattr(torch.distributed, "all_reduce", lambda t, group=None: None)
+    x = torch.randn(1, 6, 8, 1, generator=torch.Generator().manual_seed(0))
+    with spatial_rules(RankGrid(1, 2, 2, 0, 1, 1)):
+        got = PhysicalDownsample(stride=4)(x)
+    whole = torch.zeros(1, 12, 16, 1)
+    whole[:, 6:, 8:] = x
+    want = PhysicalDownsample(stride=4)(whole)
+    assert want.shape == (1, 3, 4, 1) and got.shape == (1, 3, 2, 1)
+    assert torch.equal(got, want[:, :, 2:])
 
 
 @pytest.mark.parametrize("sizes,n,want", [

@@ -13,18 +13,34 @@ here (the JAX mesh case is ``tests/test_torch_spatial.py``).
   cotangent summed in another order); the split Newton–Schulz stack
   (distributed NorMuon) within ``tests/test_torch_optim.py``'s float32
   limit, 2e-6, of the redundant one.
+* The whole model (``model.coarsening_factor`` 2 or 3) on splits that its
+  blocks or its coarse grid do not fit (``MODEL_CASES``: a stride that does
+  not start every block, a ``lat`` or ``space`` axis that does not divide
+  the coarse grid and is collapsed, ``RankGrid.fit``; one under gradient
+  checkpointing with ``advect_pos``), in the two layer launches: the
+  output, the input's gradient and the parameters' within ``OPS_RTOL`` of
+  one process (measured 4.2e-6), on the processor grid each split derives.
 * Train steps on ``lat 2 × space 2`` ranks (NorMuon, bicubic), on ``lat 2``
   with gradient checkpointing under ``advect_pos``, truncated
   backpropagation every step of 2 and the band bound (the unbanded kernels'
-  plain versions on the clamped positions), and on ``space 2`` with the AMSE
-  loss and checkpointing under ``none``, each against one process with the
-  same weights and batches: losses and gradient norms within rtol 1e-5, the
-  parameters within atol 3e-5 (``tests/test_sharding.py:160-165``).
+  plain versions on the clamped positions), on ``space 2`` with the AMSE
+  loss and checkpointing under ``none``, and FSDP on ``data 2 × lat 2``
+  (4 steps), each against one process with the same weights and batches:
+  losses and gradient norms within rtol 1e-5, the parameters within atol
+  3e-5 (``tests/test_sharding.py:160-165``).  The FSDP run also holds: its
+  gradient norm that of the replicated layout on the same averaged
+  gradients within ``FSDP_RTOL``, the parameters of every data group's
+  spatial positions bitwise equal after each step, its step-2 sharded
+  checkpoint (one shard a data rank, written by the lead positions alone)
+  restored bitwise into one process and, in the same ranks, resumed
+  bitwise for steps 3–4.
 * ``python -m torch.distributed.run --nproc-per-node 2 -m
   paradis_torch.cli.train compute.lat_devices=2`` against one process with
   the global batch (``tests/test_torch_multirank.py``'s run): the same metric
   names at the same steps, each within ``RTOL``, only rank 0's files.
-* ``cli.forecast`` on 2 ranks with ``compute.spatial_devices=2`` against one
+* ``cli.forecast`` on 2 ranks with ``compute.spatial_devices=2``, and on 4
+  ranks with ``compute.spatial_devices=4`` and ``model.coarsening_factor=2``
+  on an 8 × 12 store (a split the coarse grid does not fit), against one
   process: the same arrays, coordinates equal, each forecast value within
   one BitRound(16) step of the one-process store's plus ``SUM_RTOL`` of the
   variable's largest value (float32 sums in another order, which may move a
@@ -56,6 +72,7 @@ BITROUND_STEP = 2.0 ** -16
 # float32 sums in another order, relative to the largest value of a variable
 # (a value near zero carries the rounding of its larger addends)
 SUM_RTOL = 1e-6
+FSDP_RTOL = 1e-6
 STEP_CASES = {
     "lat2_space2": ["compute.lat_devices=2", "compute.spatial_devices=2"],
     "lat2_remat_tbptt_band": ["compute.lat_devices=2", "compute.gradient_checkpointing=true",
@@ -64,6 +81,36 @@ STEP_CASES = {
                               "compute.interp_band_rad=0.3"],
     "space2_amse": ["compute.spatial_devices=2", "training.loss_function.type=amse",
                     "compute.gradient_checkpointing=true", "compute.remat_policy=none"],
+    "data2_lat2_fsdp": ["compute.lat_devices=2"],
+}
+# the launches that differ from a step case's default (its spatial ranks, 2
+# steps): world size, steps and the worker's settings
+FSDP_STEPS, FSDP_RESUME = 4, 2
+STEP_LAYOUTS = {"data2_lat2_fsdp": {"world": 4, "steps": FSDP_STEPS,
+                                    "settings": {"fsdp": True, "resume": FSDP_RESUME}}}
+# the model on splits its blocks or coarse grid do not fit, float32: (the
+# layer launch of the grid, whose ranks it runs on), the grid, the overrides
+# (its own lat / space), the processor grid's (lat, space) it derives
+_MODEL = TINY + ["compute.use_amp=false"]
+MODEL_CASES = {
+    # the stride misaligned in lat (11-row blocks), coarse rows 8 -> 4 + 4
+    "22x24_s3_lat2_space2": (22, [22, 24], _MODEL + [
+        "model.coarsening_factor=3", "compute.lat_devices=2", "compute.spatial_devices=2"],
+        [2, 2]),
+    # coarse rows 3: lat collapsed, the space row kept; under advect_pos
+    "8x12_s3_lat2_space2_remat": (22, [8, 12], _MODEL + [
+        "model.coarsening_factor=3", "compute.lat_devices=2", "compute.spatial_devices=2",
+        "compute.gradient_checkpointing=true", "compute.remat_policy=advect_pos"], [1, 2]),
+    # coarse rows 3 on data 2 x lat 2: the processor whole on every rank
+    "8x12_s3_lat2": (22, [8, 12], _MODEL + ["model.coarsening_factor=3",
+                                            "compute.lat_devices=2"], [1, 1]),
+    # misaligned and undivided in longitude (coarse 6 columns on 4 ranks)
+    "8x12_s2_space4": (22, [8, 12], _MODEL + ["model.coarsening_factor=2",
+                                              "compute.spatial_devices=4"], [1, 1]),
+    # coarse columns 4 on space 3: space collapsed, the lat column kept
+    "16x12_s3_lat2_space3": (23, [16, 12], _MODEL + [
+        "model.coarsening_factor=3", "compute.lat_devices=2", "compute.spatial_devices=3"],
+        [2, 1]),
 }
 
 
@@ -108,20 +155,25 @@ def runs(tmp_path_factory):
     base = tmp_path_factory.mktemp("spatial_runs")
     waits = {}
     for lat, space, grid in ((2, 2, [8, 16]), (2, 3, [8, 12])):
+        models = [{"grid": g, "overrides": o} for launch_of, g, o, _ in MODEL_CASES.values()
+                  if launch_of == 10 * lat + space]
         waits[f"ops{lat}{space}"] = launch(
             [sys.executable, WORKER, "ops", str(base / f"ops{lat}{space}"),
-             json.dumps({"lat": lat, "space": space, "grid": grid})], lat * space, TIMEOUT)
+             json.dumps({"lat": lat, "space": space, "grid": grid, "models": models})],
+            lat * space, TIMEOUT)
     common = TINY + ["training.optimizer.ns_dtype=float32", "compute.use_amp=false"]
     for name, case in STEP_CASES.items():
+        layout = STEP_LAYOUTS.get(name, {})
         one = common + [o for o in case if not o.startswith(("compute.lat", "compute.spatial"))]
         if "detach_gradient_every=1" in " ".join(case):
             one = one + ["model.forecast_steps=2"]
-        _inputs(base / f"{name}.npz", one, 2)
-        for label, world, overrides in (("one", 0, one),
-                                        ("ranks", _spatial(case), one + [
-                                            o for o in case if o.startswith(
-                                                ("compute.lat", "compute.spatial"))])):
-            settings = {"overrides": overrides, "device": "cpu", "grid": [8, 16]}
+        _inputs(base / f"{name}.npz", one, layout.get("steps", 2))
+        for label, world, overrides, more in (
+                ("one", 0, one, {}),
+                ("ranks", layout.get("world", _spatial(case)), one + [
+                    o for o in case if o.startswith(("compute.lat", "compute.spatial"))],
+                 layout.get("settings", {}))):
+            settings = {"overrides": overrides, "device": "cpu", "grid": [8, 16], **more}
             waits[f"{name}:{label}"] = launch(
                 [sys.executable, WORKER, str(base / f"{name}.npz"),
                  str(base / f"{name}.{label}.npz"), json.dumps(settings)], world, TIMEOUT)
@@ -140,6 +192,70 @@ def test_the_layers_on_a_grid_of_ranks_match_one_process(runs, lat, space):
         for key in ("pole", "advection", "loss"):
             assert res[key] <= OPS_RTOL, (res["rank"], key, res[key])
         assert res["ns"] <= NS_ATOL and res["ns_ways"] == lat * space
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_the_model_on_a_split_its_blocks_do_not_fit_matches_one_process(runs, name):
+    """A downsample stride that does not start every block, or a coarse grid
+    an axis does not divide (ROADMAP.md, Queue 1 item 8e), on every rank of
+    the case's layer launch."""
+    launch_of, *_, processor = MODEL_CASES[name]
+    index = [k for k, case in MODEL_CASES.items() if case[0] == launch_of].index(name)
+    lat, space = divmod(launch_of, 10)
+    for r in range(lat * space):
+        res = json.loads((runs / f"ops{launch_of}.rank{r}.json").read_text())["models"][index]
+        assert res["processor"] == processor, (r, res)
+        assert res["gap"] <= OPS_RTOL, (r, res)
+
+
+def test_fsdp_over_a_data_lat_grid_holds_its_layout_and_resumes_bitwise(runs):
+    """``compute.fsdp`` on ``data 2 × lat 2`` (the parametrized step test holds
+    it against one process).  The sharded layout computes the replicated
+    grid's function (only each parameter's update moves to its owners),
+    which ``tests/test_torch_spatial.py`` holds against the JAX ``(1, 2, 2)``
+    mesh step, so no JAX mesh is compiled here."""
+    from paradis_torch.config import load_config
+    from paradis_torch.tools.bench_artifact import flagship
+    from paradis_torch.train import build_optimizer
+    from paradis_torch.train.checkpoint import load_state_dict
+    from paradis_torch.train.sharded_ckpt import read_sharded
+    from paradis_torch.train.step import create_train_state
+
+    got = np.load(runs / "data2_lat2_fsdp.ranks.npz")
+    np.testing.assert_allclose(got["grad_norm"], got["grad_norm_replicated"][:FSDP_STEPS],
+                               rtol=FSDP_RTOL)
+    assert got["peers_equal"].tolist() == [True] * FSDP_STEPS
+    # #1 and #2 are the plain versions here: no launch on the CPU
+    assert got["launches"].shape == (4, 2)
+    # the checkpoint: one shard a data rank, written by the lead positions
+    # (ranks 0 and 2) alone, whole when read back
+    assert got["writers"].tolist() == [0, 2]
+    step = runs / "data2_lat2_fsdp.ranks.npz.ckpt" / "steps" / f"{FSDP_RESUME:08d}"
+    assert sorted(p.name for p in (step / "state_sharded").iterdir()) == [
+        "shard_p0.pt", "shard_p1.pt"]
+    saved = read_sharded(step / "state_sharded")
+    assert saved["grid"] == [2, 2, 1] and saved["step"] == FSDP_RESUME
+    # restored into one process: parameters and optimizer state bitwise
+    cfg = load_config(overrides=TINY + ["training.optimizer.ns_dtype=float32",
+                                         "compute.use_amp=false"])
+    model, _ = flagship(cfg, (8, 16), "cpu")
+    state = create_train_state(model, build_optimizer(cfg, model))
+    load_state_dict(state, saved)
+    assert state.step == FSDP_RESUME
+    for name, p in model.named_parameters():
+        assert np.array_equal(p.detach().numpy(), got[f"ckpt_param:{name}"]), name
+    states = state.optimizer.param_states()["params"]
+    assert sorted(states) == sorted(saved["optimizer"]["params"])
+    for name, entry in saved["optimizer"]["params"].items():
+        for key, v in entry.items():
+            assert (v is None and states[name][key] is None) or torch.equal(
+                states[name][key], v), (name, key)
+    # resumed in the same ranks: steps 3-4 and the final parameters bitwise
+    assert np.array_equal(np.float32(got["resumed_loss"]), got["loss"][FSDP_RESUME:])
+    assert np.array_equal(np.float32(got["resumed_grad_norm"]),
+                          got["grad_norm"][FSDP_RESUME:])
+    for k in [k for k in got.files if k.startswith("param:")]:
+        assert np.array_equal(got[f"resumed_{k}"], got[k]), k
 
 
 @pytest.mark.parametrize("name", list(STEP_CASES))
@@ -203,7 +319,52 @@ def test_a_spatial_forecast_writes_the_one_process_store(store, tmp_path):
     outs = two() + one()
     _check(outs)
     assert sum("forecast written" in out for _, out in outs) == 2  # rank 0's, and one's
-    a, b = zarrlite.open_store(tmp_path / "one.zarr"), zarrlite.open_store(tmp_path / "two.zarr")
+    _same_store(tmp_path / "one.zarr", tmp_path / "two.zarr")
+
+
+def test_a_split_the_coarse_grid_does_not_fit_forecasts_the_one_process_store(tmp_path):
+    """``model.coarsening_factor=2`` on 4 ``space`` ranks of an 8 × 12 store:
+    the stride does not start the 3-column blocks and the 6 coarse columns
+    do not split 4 ways, so the downsample gathers and the physics layers
+    run whole on every rank (ROADMAP.md, Queue 1 item 8e); the lead writes
+    the one-process store."""
+    from paradis_torch.data.preprocess import preprocess
+    from paradis_torch.data.synthetic import build_raw_store
+    from paradis_torch.model import Paradis
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+    from paradis_torch.tools.bench_artifact import dims
+
+    build_raw_store(str(tmp_path / "raw"), nlat=8, nlon=12, n_times=30,
+                    levels=(500, 850, 1000), start="2000-01-01T00:00:00", seed=7)
+    store = tmp_path / "store"
+    preprocess(str(tmp_path / "raw"), str(store), toa_time_stride=6)
+    cfg = torch_toy_config(store, **{"model.coarsening_factor": 2})
+    d = dims(cfg)
+    lat, lon = equiangular_lat_lon(8, 12, include_poles=False)
+    model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["output_dim"],
+                                lat_deg=lat, lon_deg=lon, device="cpu")
+    save_params(tmp_path / "params.pt", model)
+    args = ["--checkpoint-path", str(tmp_path / "params.pt"), "--root-dir", str(store),
+            "--forecast-steps", "4", "--sampling-interval", "12h", "--start-date",
+            "2000-01-06", "--end-date", "2000-01-07", "--write-every-n", "2", "--device",
+            "cpu", *[a for a in TOY if not a.startswith("training.")],
+            "model.coarsening_factor=2"]
+    four = launch(_launcher(4, "paradis_torch.cli.forecast")
+                  + ["--output-file", str(tmp_path / "four.zarr")] + args
+                  + ["compute.spatial_devices=4"], 0, TIMEOUT)
+    one = launch([sys.executable, "-m", "paradis_torch.cli.forecast"] + args
+                 + ["--output-file", str(tmp_path / "one.zarr")], 0, TIMEOUT)
+    outs = four() + one()
+    _check(outs)
+    assert sum("forecast written" in out for _, out in outs) == 2  # rank 0's, and one's
+    _same_store(tmp_path / "one.zarr", tmp_path / "four.zarr")
+
+
+def _same_store(one_path, ranks_path) -> None:
+    """The ranks' store against the one process's: the same arrays,
+    coordinates equal, each forecast value within a BitRound(16) step plus
+    ``SUM_RTOL`` of the variable's largest value."""
+    a, b = zarrlite.open_store(one_path), zarrlite.open_store(ranks_path)
     assert sorted(a.arrays()) == sorted(b.arrays())
     assert a["time"].shape == (3,)
     for name in a.arrays():

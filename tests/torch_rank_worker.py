@@ -21,11 +21,21 @@ use it too.
     python tests/torch_rank_worker.py ops OUT '{"lat": L, "space": S, "grid": [H, W]}'
 
 holds the spatial layers against their one-process selves on each rank of
-an ``L × S`` launch (``ops_main``).
+an ``L × S`` launch (``ops_main``), and with ``"models": [...]`` the whole
+model on grids that its blocks or its coarse grid do not fit.
+
+With ``"fsdp": true`` a step run also holds the sharded layout: after each
+step every rank's digest of the parameters it owns, which the ranks of a
+data group's spatial positions must share bitwise, the gradient norm that
+the replicated layout computes from the same averaged gradients, and with
+``"resume": K`` a sharded checkpoint after step ``K`` (under ``OUT``'s
+name, ``.ckpt``) from which a fresh model and optimizer, restored in the
+same processes, take the steps after ``K`` again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -37,9 +47,27 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port for a launch's store, drawn at random below the ephemeral
+    range.  A port that ``bind(0)`` hands out and this function frees could
+    be taken, before the launch's rank 0 binds it seconds later, by one of
+    the sockets that other ranks' gloo binds to port 0; a launch whose
+    store then fails to bind hangs its other ranks."""
+    import random
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.SystemRandom()
+    while True:
+        port = rng.randrange(10000, max(low, 10001))
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
 
 
 def launch(cmd: list[str], world: int, timeout: float, cwd=ROOT, extra_env=None):
@@ -67,11 +95,18 @@ def launch(cmd: list[str], world: int, timeout: float, cwd=ROOT, extra_env=None)
     t0 = time.monotonic()
 
     def wait() -> list[tuple[int, str]]:
+        """Every process's return code and output; one still running at the
+        deadline is killed, and returns -9 with what it wrote till then."""
         outs = []
         try:
             for p in procs:
                 left = max(1.0, timeout - (time.monotonic() - t0))
-                out, _ = p.communicate(timeout=left)
+                try:
+                    out, _ = p.communicate(timeout=left)
+                except subprocess.TimeoutExpired:
+                    os.killpg(p.pid, 9)
+                    out, _ = p.communicate()
+                    out += f"\n[killed after {timeout} s]"
                 outs.append((p.returncode, out))
         finally:
             for p in procs:
@@ -84,6 +119,8 @@ def launch(cmd: list[str], world: int, timeout: float, cwd=ROOT, extra_env=None)
 
 
 def main(argv: list[str]) -> None:
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -95,59 +132,140 @@ def main(argv: list[str]) -> None:
     from paradis_torch.tools.bench_artifact import dims
     from paradis_torch.tools.bench_interp import launch_counts
     from paradis_torch.train import WeightedLoss, build_optimizer, make_train_step
+    from paradis_torch.train import checkpoint as ckpt
+    from paradis_torch.train.optim import grad_norm
     from paradis_torch.train.step import create_train_state
 
     src, dst, settings = Path(argv[0]), Path(argv[1]), json.loads(argv[2])
     cfg = load_config(overrides=settings["overrides"])
     ranks = distributed.initialize_distributed(cfg, settings.get("device", "cpu"))
+    fsdp, resume = settings.get("fsdp", False), settings.get("resume")
     try:
         device = ranks.device
         nlat, nlon = settings["grid"]
         lat, lon = equiangular_lat_lon(nlat, nlon, include_poles=False)
         d = dims(cfg)
-        model = Paradis.from_config(cfg, input_dim=d["input_dim"], output_dim=d["output_dim"],
-                                    lat_deg=lat, lon_deg=lon, device=device)
         data = np.load(src)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(torch.from_numpy(data[f"param:{name}"]))
         grid = distributed.rank_grid(cfg)
-        parallel = (distributed.DataParallel(model, fsdp=settings.get("fsdp", False), grid=grid)
-                    if distributed.is_initialized() else None)
-        opt = build_optimizer(cfg, model, parallel)
         loss_fn = WeightedLoss.from_config(cfg, lat, dyn_output_features(cfg.features),
                                            nlon=nlon, device=device)
-        step = make_train_step(model, loss_fn, cfg, opt, parallel=parallel)
-        state = create_train_state(model, opt, parallel)
-        out = {"loss": [], "grad_norm": [], "loss_per_step": []}
-        before = launch_counts()
-        k = 0
-        while f"batch{k}:input" in data.files:
+        gathered = distributed.is_initialized()
+
+        def everyone(obj) -> list:
+            objs = [None] * ranks.world
+            if gathered:
+                torch.distributed.all_gather_object(objs, obj)
+            return objs if gathered else [obj]
+
+        def build(zero: bool = False):
+            """A model with the input's weights (or zeros, for a restore),
+            its layout over the ranks, optimizer and step."""
+            model = Paradis.from_config(cfg, input_dim=d["input_dim"],
+                                        output_dim=d["output_dim"], lat_deg=lat, lon_deg=lon,
+                                        device=device)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(torch.zeros(p.shape) if zero
+                            else torch.from_numpy(data[f"param:{name}"]))
+            parallel = (distributed.DataParallel(model, fsdp=fsdp, grid=grid)
+                        if gathered else None)
+            opt = build_optimizer(cfg, model, parallel)
+            if fsdp:
+                # the gradient norm the replicated layout takes of the same
+                # averaged gradients, read before the owners keep their own
+                average = parallel.average_gradients
+
+                def averaged(owned_only: bool = True):
+                    average(owned_only=False)
+                    replicated.append(float(grad_norm([p for _, p in parallel.named])))
+                    if owned_only:
+                        for n, p in parallel.named:
+                            if not parallel.owns(n):
+                                p.grad = None
+
+                parallel.average_gradients = averaged
+            step = make_train_step(model, loss_fn, cfg, opt, parallel=parallel)
+            return model, parallel, step, create_train_state(model, opt, parallel)
+
+        def batch_of(k: int) -> dict:
             batch = {key: torch.from_numpy(data[f"batch{k}:{key}"])
                      for key in ("input", "target", "forcings", "constants")}
             rows = distributed.local_batch_slice(batch["input"].shape[0], grid.d, grid.data)
             batch = {key: v[rows] for key, v in batch.items()}
             if grid.spatial > 1:
                 batch = {key: grid.block(v).contiguous() for key, v in batch.items()}
-            batch = {key: v.to(device) for key, v in batch.items()}
-            m = step(state, batch, d["n_common"])
-            for key in out:
+            return {key: v.to(device) for key, v in batch.items()}
+
+        def whole_params(model, parallel) -> dict:
+            with parallel.gathered() if parallel is not None else contextlib.nullcontext():
+                return {n: p.detach().float().cpu().numpy().copy()
+                        for n, p in model.named_parameters()}
+
+        def peers_equal(model, parallel) -> bool:
+            """Whether the ranks of each data group's spatial positions hold
+            bitwise the same parameters of their own."""
+            h = hashlib.sha256()
+            for n, p in sorted(model.named_parameters()):
+                if parallel is None or parallel.owns(n):
+                    h.update(p.detach().cpu().numpy().tobytes())
+            by_d = {}
+            for dd, digest in everyone((grid.d, h.hexdigest())):
+                by_d.setdefault(dd, set()).add(digest)
+            return all(len(v) == 1 for v in by_d.values())
+
+        writers = []  # the files this rank wrote through the checkpoint module
+        write_file = ckpt.write_file
+
+        def recording_write(path, obj):
+            writers.append(Path(path).name)
+            write_file(path, obj)
+
+        ckpt.write_file = recording_write
+        replicated = []
+        model, parallel, step, state = build()
+        manager = (ckpt.CheckpointManager(str(dst.with_name(dst.name + ".ckpt")),
+                                          step_every=resume) if resume else None)
+        out = {"loss": [], "grad_norm": [], "loss_per_step": [], "peers_equal": []}
+        saved = None
+        before = launch_counts()
+        k = 0
+        while f"batch{k}:input" in data.files:
+            m = step(state, batch_of(k), d["n_common"])
+            for key in ("loss", "grad_norm", "loss_per_step"):
                 out[key].append(m[key].detach().float().cpu().numpy())
+            out["peers_equal"].append(peers_equal(model, parallel))
             k += 1
+            if manager is not None and state.step == resume:
+                manager.maybe_save_step(state.step, state)
+                saved = whole_params(model, parallel)
         if parallel is not None:
             parallel.gather()
         after = launch_counts()
-        # every rank's launches of #1 and #2, gathered to rank 0
-        mine = torch.tensor([after[n] - before[n] for n in ("interp_fwd", "interp_bwd")])
-        counts = [mine]
-        if distributed.is_initialized():
-            counts = [torch.zeros_like(mine) for _ in range(ranks.world)]
-            torch.distributed.all_gather_object(counts, mine)
+        out["grad_norm_replicated"] = list(replicated)
+        arrays = {f"param:{n}": p.detach().float().cpu().numpy()
+                  for n, p in model.named_parameters()}
+        if saved is not None:
+            arrays.update({f"ckpt_param:{n}": v for n, v in saved.items()})
+            # the same processes restore a fresh model from the checkpoint and go on
+            model, parallel, step, state = build(zero=True)
+            manager.restore(state, manager.latest_path())
+            resumed = {"resumed_loss": [], "resumed_grad_norm": []}
+            for k in range(resume, k):
+                m = step(state, batch_of(k), d["n_common"])
+                resumed["resumed_loss"].append(float(m["loss"]))
+                resumed["resumed_grad_norm"].append(float(m["grad_norm"]))
+            out.update(resumed)
+            arrays.update({f"resumed_param:{n}": v
+                           for n, v in whole_params(model, parallel).items()})
+        # every rank's launches of #1 and #2 and its checkpoint files, to rank 0
+        counts = everyone([after[n] - before[n] for n in ("interp_fwd", "interp_bwd")])
+        files = everyone(writers)
         if ranks.rank == 0:
-            arrays = {key: np.asarray(v) for key, v in out.items()}
-            arrays["launches"] = np.stack([c.numpy() for c in counts])
-            arrays.update({f"param:{n}": p.detach().float().cpu().numpy()
-                           for n, p in model.named_parameters()})
+            arrays.update({key: np.asarray(v) for key, v in out.items()})
+            arrays["launches"] = np.asarray(counts)
+            arrays["writers"] = np.asarray([r for r, names in enumerate(files)
+                                            if any(n.startswith("shard_p") for n in names)],
+                                           dtype=np.int64)
             np.savez(dst, **arrays)
     finally:
         distributed.shutdown_distributed()
@@ -169,7 +287,13 @@ def ops_main(argv: list[str]) -> None:
       process, as a share of the largest magnitude (parameter gradients
       summed over the ranks);
     * ``ns``: this grid's split Newton–Schulz stack against the redundant
-      one (largest gap).
+      one (largest gap);
+    * ``models``: for each of ``"models"``' cases (``{"overrides": [...],
+      "grid": [H, W]}``, the overrides naming the case's own ``lat`` /
+      ``space`` on this launch's ranks and its ``model.coarsening_factor``),
+      the whole model's largest gap as above (the output, the input's
+      gradient, every parameter's gradient summed over the spatial group)
+      and the ``[lat, space]`` of the grid its physics layers ran on.
     """
     import numpy as np
     import torch
@@ -199,23 +323,25 @@ def ops_main(argv: list[str]) -> None:
             a, b = a.detach(), b.detach()
             return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
-        def run(fn, *whole, params=()):
+        def run(fn, *whole, params=(), on=None):
             """fn's output and gradients on the whole fields, and on this
-            rank's blocks inside spatial_rules: the gaps."""
+            rank's blocks of grid ``on`` (this launch's unless given) inside
+            spatial_rules: the gaps."""
+            on = grid if on is None else on
             ins = [x.clone().requires_grad_(True) for x in whole]
             ref = fn(*ins)
             ct = torch.randn(ref.shape, generator=gen) if ref.dim() else torch.tensor(1.0)
             ref_grads = torch.autograd.grad((ref * ct).sum(), ins + list(params))
-            blk = [grid.block(x).clone().requires_grad_(True) for x in whole]
-            with spatial_rules(grid):
+            blk = [on.block(x).clone().requires_grad_(True) for x in whole]
+            with spatial_rules(on):
                 got = fn(*blk)
-            ct_blk = grid.block(ct) if ref.dim() else ct
+            ct_blk = on.block(ct) if ref.dim() else ct
             grads = torch.autograd.grad((got * ct_blk).sum(), blk + list(params))
-            ref_out = grid.block(ref) if ref.dim() else ref
+            ref_out = on.block(ref) if ref.dim() else ref
             gaps = [rel(got, ref_out)]
-            gaps += [rel(g, grid.block(r)) for g, r in zip(grads[:len(blk)], ref_grads)]
+            gaps += [rel(g, on.block(r)) for g, r in zip(grads[:len(blk)], ref_grads)]
             for g, r in zip(grads[len(blk):], ref_grads[len(blk):]):
-                torch.distributed.all_reduce(g, group=grid.spatial_group)
+                torch.distributed.all_reduce(g, group=on.spatial_group)
                 gaps.append(rel(g, r))
             return max(gaps)
 
@@ -273,6 +399,26 @@ def ops_main(argv: list[str]) -> None:
         whole = newton_schulz_batched(stack, 5, side="left", dtype=torch.float32)
         res["ns"] = float((split - whole).abs().max())
         res["ns_ways"] = group.share[0]
+
+        # the whole model on grids its blocks or its coarse grid do not fit
+        res["models"] = []
+        for case in settings.get("models", []):
+            from paradis_torch.model import Paradis
+            from paradis_torch.tools.bench_artifact import dims
+
+            mcfg = load_config(overrides=case["overrides"])
+            on = distributed.rank_grid(mcfg)
+            mh, mw = case["grid"]
+            m_lat, m_lon = equiangular_lat_lon(mh, mw, include_poles=False)
+            dd = dims(mcfg)
+            model = Paradis.from_config(mcfg, input_dim=dd["input_dim"],
+                                        output_dim=dd["output_dim"], lat_deg=m_lat,
+                                        lon_deg=m_lon, device="cpu")
+            proc = on.fit(*model.mesh_size_coarse)
+            res["models"].append({
+                "gap": run(model, 2.0 * torch.randn(2, mh, mw, dd["input_dim"], generator=gen),
+                           params=list(model.parameters()), on=on),
+                "processor": [proc.lat, proc.space]})
         out.with_name(f"{out.name}.rank{grid.spatial_index}.json").write_text(json.dumps(res))
     finally:
         distributed.shutdown_distributed()
