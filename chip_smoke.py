@@ -15,8 +15,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    [1, 32, 64, 768], a share of them outside the field), bicubic and
    bilinear, float32 and bfloat16, plus an odd P·V tail shape, and bitwise
    against the row-chunked kernel (``rw = 8``); print the route it takes
-   (``resident``: each channel group's whole field in shared memory, or
-   ``window``: each tile's row window); time the kernel, the row-chunked
+   (bicubic ``resident``: each channel group's whole field in shared
+   memory, or ``window``: each tile's row window; ``bilinear``: the route
+   of ``csrc/interp_bilinear.cuh``, which every bilinear case of phases 3–5
+   and ``[kernel-chunk*]`` takes); time the kernel, the row-chunked
    kernel, the plain version and ``F.grid_sample`` (a yardstick the port
    never calls) with CUDA events, beside the kernel's memory/compute bound;
 4. hold the interpolation backward kernel against its plain backward at the
@@ -224,7 +226,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    exactly as the unbanded ones above and no other interpolation kernel;
    ``[device-ms]`` then prints the device ms a step of the forecasts and of
    every train cell beside this script's earlier figures
-   (``EARLIER_DEVICE_MS``);
+   (``EARLIER_DEVICE_MS``); ``[bilinear-paths]`` then takes the model's
+   bilinear paths (``model.adv_interpolation=bilinear``) once each, through
+   ``bench_forecast`` (a 4-step float32 rollout) and ``bench_highres`` (a
+   bfloat16 and a float32 train step), unbanded at 5.625°, banded at
+   1.40625° and row-chunked at both, each launching its entry points only,
+   as often as its 8 layers take them: the launches of the kernels line's
+   bilinear records;
 10. the contraction kernels of the microbenchmark (``[kernel-mm]``):
     ``mm`` (float32 and bfloat16 operands, each variant's channel and
     position blocks), ``mmT`` (bfloat16, the variant's, and float32) and
@@ -249,9 +257,11 @@ Phases, each of which makes the script exit non-zero when it fails:
     ``python3 -m paradis_torch.tools.bench_interp``), all fifteen variants.
 
 A ``[time]`` line after each phase gives the seconds since the start.
-The last lines are the card line, one JSON object with a record per kernel,
-and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the repository beside it, the script fails before printing any result.
+The last lines are the card line, one JSON object with a record per kernel
+(the bilinear route's timed cases too, their launches from
+``[bilinear-paths]``), and ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository beside it, the script fails before
+printing any result.
 """
 
 from __future__ import annotations
@@ -260,6 +270,7 @@ import atexit
 import contextlib
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -301,6 +312,7 @@ CHUNK_SOURCE = "paradis_torch/csrc/interp_chunk_fwd.cu"
 CHUNK_REPLACES = "paradis_tpu/ops/interp_pallas.py:237"
 CHUNK_BWD_SOURCE = "paradis_torch/csrc/interp_chunk_bwd.cu"
 CHUNK_BWD_REPLACES = "paradis_tpu/ops/interp_pallas.py:254"
+BILINEAR_SOURCE = "paradis_torch/csrc/interp_bilinear.cuh"  # every entry point's bilinear route
 GEN_SOURCE = "paradis_torch/csrc/interp_gen.cu"
 GEN_REPLACES = "scripts/bench_interp.py:107"
 BWD_GEN_REPLACES = "scripts/bench_interp.py:221"
@@ -310,6 +322,7 @@ MMT_REPLACES = "scripts/bench_interp.py:176"
 BWD_MM_REPLACES = "scripts/bench_interp.py:248"
 CHUNK_RW = 8               # PARADIS_INTERP_CHUNK of the 5.625° chunked runs
 HR_CHUNK_RW = 32           # and of the 1.40625° ones
+BILINEAR_STEPS = 4         # the steps of run_bilinear_paths' rollouts
 TRAIN_STEPS = 6            # train steps on one batch (the first is the warm-up)
 TRAIN_PROFILE_STEPS = 2    # train steps traced by torch.profiler
 # WSD with a short warmup, so the few steps run at the configured rate
@@ -638,7 +651,10 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
     if chunk_rw:
         res.update(chunk_rw=chunk_rw, depart_px=depart_px)
     if band_px is not None or chunk_rw:
-        res["bitwise_equal_unbanded"] = bool(torch.equal(out, refs["unbanded"]))
+        # the banded and chunked entry points: the bilinear route, or the
+        # bicubic window kernel
+        res.update(route="bilinear" if mode == "bilinear" else "window",
+                   bitwise_equal_unbanded=bool(torch.equal(out, refs["unbanded"])))
         res["ok"] = res["ok"] and res["bitwise_equal_unbanded"]
     else:
         res.update(route=interp_fwd_route(field, mode),
@@ -676,6 +692,106 @@ def check_kernel(mode: str, dtype_name: str, shape, timed: bool,
             res["library_max_abs_diff_vs_plain"] = float((lib_out - refs["plain"]).abs().max())
         res["bound_ms"], res["bound_by"] = bound(field, py, mode)
     return res
+
+
+def run_bilinear_paths() -> dict:
+    """The model's bilinear paths (``model.adv_interpolation=bilinear``),
+    through the tools a user times them with, each once (a
+    ``BILINEAR_STEPS``-step ``bench_forecast`` rollout in float32, a
+    ``bench_highres`` step in bfloat16, and in float32 with
+    ``compute.use_amp=false``): unbanded at 5.625°, banded at 1.40625° (the
+    tools' ``compute.interp_band_rad=0.3``), and row-chunked at both
+    (``compute.interp_band_rad=0``, ``PARADIS_INTERP_CHUNK`` ``CHUNK_RW`` /
+    ``HR_CHUNK_RW``).  ``{label: {"launches": the interpolation kernels'
+    launches a rollout or step, "expected": ..., "ok": ...}}``; a run is ok
+    where it launched its entry points only, as many times as its path
+    takes them (8 layers), and its output or losses are finite."""
+    from paradis_torch.tools import bench_forecast, bench_highres
+
+    chain = ["--chain-short", "0", "--chain-long", "1", "--repeats", "1",
+             "--override", "model.adv_interpolation=bilinear"]
+    lr = ["--nlat", str(NLAT), "--nlon", str(NLON)]  # bench_highres's; bench_forecast's default
+    hr = ["--nlat", str(HR[0]), "--nlon", str(HR[1])]
+    unbanded = ["--override", "compute.interp_band_rad=0"]
+    fp32 = ["--override", "compute.use_amp=false"]
+    fc = 8 * BILINEAR_STEPS
+    runs = {  # label: tool, arguments, chunk rows, the launches expected
+        "forecast float32 5.625": (bench_forecast, [], 0, {"interp_fwd": fc}),
+        "train bfloat16 5.625": (bench_highres, lr + unbanded, 0,
+                                 {"interp_fwd": 16, "interp_bwd": 8}),
+        "train float32 5.625": (bench_highres, lr + unbanded + fp32, 0,
+                                {"interp_fwd": 16, "interp_bwd": 8}),
+        "forecast float32 1.40625": (bench_forecast, hr, 0, {"interp_band_fwd": fc}),
+        "train bfloat16 1.40625": (bench_highres, hr, 0,
+                                   {"interp_band_fwd": 16, "interp_band_bwd": 8}),
+        "train float32 1.40625": (bench_highres, hr + fp32, 0,
+                                  {"interp_band_fwd": 16, "interp_band_bwd": 8}),
+        "forecast-chunk float32 5.625": (bench_forecast, [], CHUNK_RW,
+                                         {"interp_chunk_fwd": fc}),
+        "train-chunk bfloat16 5.625": (bench_highres, lr + unbanded, CHUNK_RW,
+                                       {"interp_chunk_fwd": 16, "interp_chunk_bwd": 8}),
+        "forecast-chunk float32 1.40625": (bench_forecast, hr + unbanded, HR_CHUNK_RW,
+                                           {"interp_chunk_fwd": fc}),
+        "train-chunk bfloat16 1.40625": (bench_highres, hr + unbanded, HR_CHUNK_RW,
+                                         {"interp_chunk_fwd": 16, "interp_chunk_bwd": 8}),
+    }
+    out = {}
+    for label, (tool, argv, rw, expected) in runs.items():
+        steps = ["--steps", str(BILINEAR_STEPS)] if tool is bench_forecast else []
+        with interp_chunk_env(rw):
+            res = tool.main(argv + steps + chain)
+        if tool is bench_forecast:
+            launches, finite = res["launches_per_rollout"], res["finite"]
+        else:
+            launches = res["launches_per_step"]
+            finite = all(math.isfinite(v) for v in res["losses"])
+        out[label] = {"launches": launches, "expected": expected, "finite": finite,
+                      "ok": launches == expected and finite}
+    return out
+
+
+def bilinear_records(checks, bwd_checks, band_checks, band_bwd_checks, chunk_checks,
+                     chunk_bwd_checks, paths: dict) -> list:
+    """The kernels line's records of the bilinear route
+    (``csrc/interp_bilinear.cuh``), one for each timed bilinear case of the
+    entry points that the bicubic records cover, its launches counted in the
+    bilinear run of the path that takes it (``run_bilinear_paths``, a
+    rollout or a train step): the float32 forwards in a rollout, the bfloat16
+    ones and the backwards in a train step."""
+    def grid(c):
+        return "1.40625" if c["shape"][4] == HR[0] else "5.625"
+
+    def run(c, kind):
+        return paths[f"{kind} {c['dtype']} {grid(c)}"]["launches"]
+
+    records = []
+    for name, source, replaces, found, launches in (
+            ("interp_fwd", KERNEL_SOURCE, REPLACES, checks,
+             lambda c: run(c, "forecast" if c["dtype"] == "float32" else "train")),
+            ("interp_bwd", BWD_SOURCE, BWD_REPLACES, bwd_checks, lambda c: run(c, "train")),
+            ("interp_band_fwd", BAND_SOURCE, BAND_REPLACES, band_checks,
+             lambda c: run(c, "forecast" if c["dtype"] == "float32" else "train")),
+            ("interp_band_bwd", BAND_BWD_SOURCE, BAND_BWD_REPLACES, band_bwd_checks,
+             lambda c: run(c, "train")),
+            ("interp_chunk_fwd", CHUNK_SOURCE, CHUNK_REPLACES, chunk_checks,
+             lambda c: run(c, "forecast-chunk" if c["dtype"] == "float32" else "train-chunk")),
+            ("interp_chunk_bwd", CHUNK_BWD_SOURCE, CHUNK_BWD_REPLACES,
+             [c for c in chunk_bwd_checks if c["dtype"] == "bfloat16"],
+             lambda c: run(c, "train-chunk"))):
+        for c in found:
+            if c["mode"] != "bilinear" or "ms" not in c:
+                continue
+            tag = f",rw{c['chunk_rw']},{c['shape'][4]}x{c['shape'][5]}" if "chunk_rw" in c else ""
+            rec = {"name": f"{name}[bilinear,{c['dtype']}{tag}]", "route": "cuda",
+                   "source": BILINEAR_SOURCE, "entry": source, "replaces": replaces,
+                   "launches": launches(c).get(name, 0), "max_abs_err": c["max_abs_err"],
+                   "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                   "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+            for extra in ("unbanded_ms", "banded_ms", "chunk_ms"):
+                if extra in c:
+                    rec[extra] = c[extra]
+            records.append(rec)
+    return records
 
 
 def sorted_quantiles(values, qs) -> list[float]:
@@ -810,7 +926,8 @@ def check_bwd_kernel(mode: str, dtype_name: str, shape, timed: bool,
         refs["chunk"] = interp_chunk_bwd_cuda(field, py, px, g, CHUNK_RW, mode)
     torch.cuda.synchronize()
     res = {"mode": mode, "dtype": dtype_name, "shape": [B, R, C, V, H, W],
-           "integer_positions": integer, "ok": out[0].dtype == dtype}
+           "integer_positions": integer, "ok": out[0].dtype == dtype,
+           "route": "bilinear" if mode == "bilinear" else "row-slab"}
     if band_px is not None:
         res.update(band_px=band_px, band_plan=list(spec))
     if chunk_rw:
@@ -3753,7 +3870,17 @@ def main() -> int:
             f"{res['train_steps_per_s']:.2f} train steps/s (batch 1, checkpointing "
             f"{res['gradient_checkpointing']}) on {card}")
 
-    phase_done("[forecast-chunk], [train-chunk]")
+    # the bilinear route on the model's paths: the launches of the kernels
+    # line's bilinear records
+    reset_counts()
+    bilinear_paths = run_bilinear_paths()
+    log("[bilinear-paths] " + json.dumps(bilinear_paths))
+    bad = {k: r for k, r in bilinear_paths.items() if not r["ok"]}
+    if bad:
+        raise SystemExit(f"a bilinear path launched other kernels, or other counts, than it "
+                         f"takes, or gave non-finite values: {bad}")
+
+    phase_done("[forecast-chunk], [train-chunk], [bilinear-paths]")
 
     # the device time a step of the forecasts and train steps, beside this
     # script's earlier figures (EARLIER_DEVICE_MS)
@@ -3842,6 +3969,8 @@ def main() -> int:
                     if extra in c:
                         rec[extra] = c[extra]
                 kernels.append(rec)
+    kernels += bilinear_records(checks, bwd_checks, band_checks, band_bwd_checks,
+                                chunk_checks, chunk_bwd_checks, bilinear_paths)
     # the forecast CLI's launches beside the fp32 records of its kernels
     for k in kernels:
         if k["name"] == "interp_fwd[bicubic,float32]":

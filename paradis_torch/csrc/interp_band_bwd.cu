@@ -7,7 +7,8 @@
 // limited to the band of its arrival row.  Here the field is taken in place
 // with the band plan of interp_band_fwd.cu, and the kernel is the row-slab
 // backward of interp_stage_bwd.cuh, which the unbanded and row-chunked
-// backwards launch too, with the Band filter of interp_stage.cuh:
+// backwards launch too (a bilinear field: the tiled backward of
+// interp_bilinear.cuh, theirs too), with the Band filter of interp_stage.cuh:
 //
 //   d_field[b,r,c,v] = sum_p g * K(py - r) * K(px - c)
 //   d_py[b,p,v]      = g * sum_r K'(py - r) * sum_c K(px - c)  * f[b,r,c,v]
@@ -29,18 +30,19 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "interp_bilinear.cuh"
 #include "interp_stage_bwd.cuh"
 
 // mode: 0 bilinear, 1 bicubic.  dtype (field and d_field), grad_dtype (g):
 // 0 float32, 1 bfloat16.  d_field is [B,R,C,V] in the field's type, written
-// whole; d_py and d_px are float32 [B,P,V]; span is int32 scratch of
-// 2 * B * ceil(V / 2) * ceil(P / 32) elements.  P = H*W <= INT_MAX with H a
-// multiple of rpb; 0 < band_rows <= R.  Returns the CUDA error of the launch
-// (0 on success); cudaErrorInvalidValue where a slab of one row (and its
+// whole; d_py and d_px are float32 [B,P,V]; scratch as for
+// paradis_interp_bwd (interp_bwd.cu).  P = H*W <= INT_MAX with H a multiple
+// of rpb; 0 < band_rows <= R.  Returns the CUDA error of the launch (0 on
+// success); cudaErrorInvalidValue where a bicubic slab of one row (and its
 // taps' halo) of one channel does not fit in shared memory.
 extern "C" int paradis_interp_band_bwd(const void* field, const void* pos_y,
                                        const void* pos_x, const void* grad, void* d_field,
-                                       void* d_py, void* d_px, void* span, long long B,
+                                       void* d_py, void* d_px, void* scratch, long long B,
                                        long long P, int R, int C, int V, int W, int rpb,
                                        int band_rows, int halo_lo, int pad, int mode, int dtype,
                                        int grad_dtype, void* stream) {
@@ -48,6 +50,9 @@ extern "C" int paradis_interp_band_bwd(const void* field, const void* pos_y,
       band_rows <= 0 || band_rows > R || P % W != 0 || (P / W) % rpb != 0)
     return cudaErrorInvalidValue;
   const Band band{W * rpb, rpb, band_rows, halo_lo, pad};
-  return launch_slab_bwd(field, pos_y, pos_x, grad, d_field, d_py, d_px, span, B, P, R, C, V,
+  if (mode == 0)
+    return launch_bilinear_bwd(field, pos_y, pos_x, grad, d_field, d_py, d_px, scratch, B, P, R,
+                               C, V, W, dtype, grad_dtype, stream, band);
+  return launch_slab_bwd(field, pos_y, pos_x, grad, d_field, d_py, d_px, scratch, B, P, R, C, V,
                          mode, dtype, grad_dtype, stream, band);
 }

@@ -7,7 +7,8 @@
 // its arrival row.  Here the field is taken in place with the band plan
 // (rpb, band_rows, halo_lo, pad; paradis_torch/ops/interp_band.py), and the
 // kernel is the window forward of interp_stage.cuh, which the unbanded and
-// row-chunked forwards launch too, with the Band filter:
+// row-chunked forwards launch too (a bilinear field: the tiled forward of
+// interp_bilinear.cuh, theirs too), with the Band filter:
 //
 //   position p (within its batch) lies in band b = (p / W) / rpb, whose rows
 //   are [lo, lo + band_rows), lo = clip(b*rpb + pad - halo_lo, 0,
@@ -28,6 +29,7 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "interp_bilinear.cuh"
 #include "interp_stage.cuh"
 
 // mode: 0 bilinear, 1 bicubic.  dtype: 0 float32, 1 bfloat16 (field and out).
@@ -47,12 +49,9 @@ extern "C" int paradis_interp_band_fwd(const void* field, const void* pos_y,
   const float* px = static_cast<const float*>(pos_x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 1 && dtype == 0)
-    return launch_window<true, float>(field, py, px, out, B, P, R, C, V, s, band);
+    return launch_window<float>(field, py, px, out, B, P, R, C, V, s, band);
   if (mode == 1 && dtype == 1)
-    return launch_window<true, __nv_bfloat16>(field, py, px, out, B, P, R, C, V, s, band);
-  if (mode == 0 && dtype == 0)
-    return launch_window<false, float>(field, py, px, out, B, P, R, C, V, s, band);
-  if (mode == 0 && dtype == 1)
-    return launch_window<false, __nv_bfloat16>(field, py, px, out, B, P, R, C, V, s, band);
+    return launch_window<__nv_bfloat16>(field, py, px, out, B, P, R, C, V, s, band);
+  if (mode == 0) return launch_bilinear_fwd(field, py, px, out, B, P, R, C, V, W, dtype, s, band);
   return cudaErrorInvalidValue;
 }

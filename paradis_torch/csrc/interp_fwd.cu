@@ -3,8 +3,10 @@
 // Replaces the TPU kernel paradis_tpu/ops/interp_pallas.py:_fwd_kernel, which
 // generates dense separable weights K(pos - i) over every padded row and
 // column and contracts them on the MXU.  On this card the direct form is
-// cheaper: each output reads its 4x4 (bicubic) or 2x2 (bilinear) taps, about
-// 70 flops an output, no tensor-core work.
+// cheaper: each output reads its 4x4 (bicubic) taps, about 70 flops an
+// output, no tensor-core work.  A bilinear field (2x2 taps) takes the
+// bilinear route of interp_bilinear.cuh instead (route 2 below); what
+// follows is bicubic's.
 //
 //   out[b,p,v] = sum_r K(py[b,p,v] - r) * sum_c K(px[b,p,v] - c) * f[b,r,c,v]
 //
@@ -15,20 +17,19 @@
 // So the field is read from shared memory, by one of two routes:
 //
 // The resident route, where two slabs of a channel group's whole R x C field
-// fit in shared memory (5.625 deg: 36 x 68 bicubic, 34 x 66 bilinear, 78 KB
-// and 72 KB a slab).  A work unit is (b, group of kVg channels, position);
-// kVg channels are 32 bytes (8 fp32, 16 bf16), so a position's reads of py
-// and px and its store fill whole 32-byte sectors.  A persistent grid, one
-// 1024-thread block an SM, gives each block one contiguous run of units,
-// group-major, so a block stages each group it meets once; there is no
-// window, so the spread of the positions costs nothing.  A ring of two
-// slabs: the block's next group is copied (16-byte cp.async from every
-// thread, each cell's channels contiguous in shared memory) while the
-// current one is gathered, and a pass's positions are loaded before the
-// block waits for its slab.  A warp holds 4 (fp32) or 2 (bf16) consecutive
-// positions of its group, each thread one channel, and adds its taps from
-// shared memory.  Where V is no multiple of kVg or the field is not 16-byte
-// aligned the slabs are staged with plain loads, zero-filling channels >= V.
+// fit in shared memory (5.625 deg: 36 x 68, 78 KB a slab).  A work unit is (b,
+// group of kVg channels, position); kVg channels are 32 bytes (8 fp32, 16
+// bf16), so a position's reads of py and px and its store fill whole 32-byte
+// sectors.  A persistent grid, one 1024-thread block an SM, gives each block
+// one contiguous run of units, group-major, so a block stages each group it
+// meets once; there is no window, so the spread of the positions costs nothing.
+// A ring of two slabs: the block's next group is copied (16-byte cp.async from
+// every thread, each cell's channels contiguous in shared memory) while the
+// current one is gathered, and a pass's positions are loaded before the block
+// waits for its slab.  A warp holds 4 (fp32) or 2 (bf16) consecutive positions
+// of its group, each thread one channel, and adds its taps from shared memory.
+// Where V is no multiple of kVg or the field is not 16-byte aligned the slabs
+// are staged with plain loads, zero-filling channels >= V.
 //
 // The window route, for larger fields (1.40625 deg: 132 x 260, over 1 MB a
 // group): the row-chunked forward's window kernel (interp_stage.cuh), which
@@ -41,7 +42,7 @@
 // interp_chunk_fwd.cu's on any positions.  Taps outside [0,R) x [0,C) are
 // dropped (contribute zero), as in the Pallas kernel, and a position that is
 // not finite has no taps.  Weights come from floor(pos) (ATen cubic
-// convolution, a = -0.75; or 1-t, t).
+// convolution, a = -0.75).
 //
 // What bounds it: memory.  At the 5.625 deg flagship shape (field
 // 1x36x68x768, P = 2048, V = 768) one fp32 launch must read the field once
@@ -64,6 +65,7 @@
 #include <map>
 #include <mutex>
 
+#include "interp_bilinear.cuh"
 #include "interp_stage.cuh"
 
 namespace {
@@ -80,7 +82,7 @@ __host__ __device__ constexpr int group_of() {
   return kCellBytes / static_cast<int>(sizeof(T));
 }
 
-template <bool kBicubic, typename T>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 resident_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                     const float* __restrict__ pos_x, T* __restrict__ out, int64_t P, int R,
@@ -146,7 +148,7 @@ resident_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y
         const int64_t p = p0 + row_pos + j * kRow;
         if (p < p_hi && ch_ok)
           out[(b * P + p) * V + v0 + ch] =
-              from_float<T>(add_taps<kBicubic, T, kVg>(0.0f, y[j], x[j], slab, ch, 0, R, C));
+              from_float<T>(add_taps<T, kVg>(0.0f, y[j], x[j], slab, ch, 0, R, C));
       }
     }
     __syncthreads();  // every thread is done with the slab
@@ -162,7 +164,7 @@ struct Card {
   int64_t avail;
 };
 
-template <bool kBicubic, typename T>
+template <typename T>
 cudaError_t card_of(Card* card) {
   static std::mutex mu;
   static std::map<int, Card> cards;
@@ -175,7 +177,7 @@ cudaError_t card_of(Card* card) {
     *card = known->second;
     return cudaSuccess;
   }
-  auto kernel = resident_fwd_kernel<kBicubic, T>;
+  auto kernel = resident_fwd_kernel<T>;
   int smem_block = 0;
   Card c;
   err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, device);
@@ -200,15 +202,15 @@ int64_t ring_bytes(int R, int C) { return static_cast<int64_t>(kStages) * R * C 
 // shared memory a block may have.
 bool resident(int R, int C, const Card& card) { return ring_bytes(R, C) <= card.avail; }
 
-template <bool kBicubic, typename T>
+template <typename T>
 int launch(const void* field, const float* py, const float* px, void* out, int64_t B, int64_t P,
            int R, int C, int V, cudaStream_t stream) {
   constexpr int kVg = group_of<T>();
   Card card;
-  const cudaError_t err = card_of<kBicubic, T>(&card);
+  const cudaError_t err = card_of<T>(&card);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!resident(R, C, card))
-    return launch_window<kBicubic, T>(field, py, px, out, B, P, R, C, V, stream);
+    return launch_window<T>(field, py, px, out, B, P, R, C, V, stream);
   const int64_t smem = ring_bytes(R, C);
   const int64_t n_groups = (V + kVg - 1) / kVg;
   const int64_t units = B * n_groups * P;
@@ -216,7 +218,7 @@ int launch(const void* field, const float* py, const float* px, void* out, int64
   const int64_t blocks =
       std::min<int64_t>(card.sms, std::max<int64_t>(units / (kThreads / kVg), 1));
   const bool vec = V % kVg == 0 && reinterpret_cast<uintptr_t>(field) % kCopyBytes == 0;
-  resident_fwd_kernel<kBicubic, T>
+  resident_fwd_kernel<T>
       <<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem), stream>>>(
           static_cast<const T*>(field), py, px, static_cast<T*>(out), P, R, C, V,
           static_cast<int>(n_groups), units, vec);
@@ -225,10 +227,10 @@ int launch(const void* field, const float* py, const float* px, void* out, int64
 
 // 0: the resident route takes an R x C field, 1: the window route; or a
 // negative CUDA error.
-template <bool kBicubic, typename T>
+template <typename T>
 int route(int R, int C) {
   Card card;
-  const cudaError_t err = card_of<kBicubic, T>(&card);
+  const cudaError_t err = card_of<T>(&card);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return resident(R, C, card) ? 0 : 1;
 }
@@ -236,33 +238,34 @@ int route(int R, int C) {
 }  // namespace
 
 // mode: 0 bilinear, 1 bicubic.  dtype: 0 float32, 1 bfloat16 (field and out).
-// Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
-// where the field takes the window route and one of its rows of one channel
-// does not fit in shared memory.
+// P = H*W positions, W > 0 of them an arrival row (the bilinear route's
+// tiles; the bicubic routes do not use it).  Returns the CUDA error of the
+// launch (0 on success); cudaErrorInvalidValue where a bicubic field takes
+// the window route and one of its rows of one channel does not fit in shared
+// memory.
 extern "C" int paradis_interp_fwd(const void* field, const void* pos_y, const void* pos_x,
                                   void* out, long long B, long long P, int R, int C, int V,
-                                  int mode, int dtype, void* stream) {
+                                  int W, int mode, int dtype, void* stream) {
   if (B <= 0 || P <= 0 || R <= 0 || C <= 0 || V <= 0) return cudaErrorInvalidValue;
   const float* py = static_cast<const float*>(pos_y);
   const float* px = static_cast<const float*>(pos_x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 1 && dtype == 0) return launch<true, float>(field, py, px, out, B, P, R, C, V, s);
-  if (mode == 1 && dtype == 1) return launch<true, __nv_bfloat16>(field, py, px, out, B, P, R, C, V, s);
-  if (mode == 0 && dtype == 0) return launch<false, float>(field, py, px, out, B, P, R, C, V, s);
-  if (mode == 0 && dtype == 1) return launch<false, __nv_bfloat16>(field, py, px, out, B, P, R, C, V, s);
+  if (mode == 0) return launch_bilinear_fwd(field, py, px, out, B, P, R, C, V, W, dtype, s);
+  if (mode == 1 && dtype == 0) return launch<float>(field, py, px, out, B, P, R, C, V, s);
+  if (mode == 1 && dtype == 1) return launch<__nv_bfloat16>(field, py, px, out, B, P, R, C, V, s);
   return cudaErrorInvalidValue;
 }
 
 // The route paradis_interp_fwd takes for an R x C field on the current
-// device: 0 resident, 1 window; a negative CUDA error, or
-// -cudaErrorInvalidValue for arguments it does not take.  Launches nothing;
-// the stream is not used.
+// device: 0 resident, 1 window (bicubic), 2 bilinear (every bilinear field);
+// a negative CUDA error, or -cudaErrorInvalidValue for arguments it does not
+// take.  Launches nothing; the stream is not used.
 extern "C" int paradis_interp_fwd_route(int R, int C, int mode, int dtype, void* stream) {
   (void)stream;
-  if (R <= 0 || C <= 0) return -static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 1 && dtype == 0) return route<true, float>(R, C);
-  if (mode == 1 && dtype == 1) return route<true, __nv_bfloat16>(R, C);
-  if (mode == 0 && dtype == 0) return route<false, float>(R, C);
-  if (mode == 0 && dtype == 1) return route<false, __nv_bfloat16>(R, C);
+  if (R <= 0 || C <= 0 || (dtype != 0 && dtype != 1))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 0) return 2;
+  if (mode == 1 && dtype == 0) return route<float>(R, C);
+  if (mode == 1 && dtype == 1) return route<__nv_bfloat16>(R, C);
   return -static_cast<int>(cudaErrorInvalidValue);
 }

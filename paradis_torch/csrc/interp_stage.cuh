@@ -1,7 +1,9 @@
 // Staging a field's channel groups in shared memory, and the gather over a
-// staged slab; shared by the forward kernels interp_fwd.cu,
+// staged slab; shared by the bicubic forward kernels interp_fwd.cu,
 // interp_chunk_fwd.cu and interp_band_fwd.cu, so that all three sum every
-// position's taps in one float order and give the same bits.
+// position's taps in one float order and give the same bits.  (Bilinear
+// fields take the bilinear route of interp_bilinear.cuh, which uses the
+// copies and the band filter here.)
 //
 //   out[b,p,v] = sum_r K(py - r) * sum_c K(px - c) * f[b,r,c,v]
 //
@@ -196,10 +198,10 @@ struct Band {
 
 // acc plus the taps of the position (y, x) whose rows lie in [r0, r1), read
 // at channel ch of the slab [r1 - r0, C, kVg] that holds those rows.
-template <bool kBicubic, typename T, int kVg>
+template <typename T, int kVg>
 __device__ __forceinline__ float add_taps(float acc, float y, float x, const T* slab, int ch,
                                           int r0, int r1, int C) {
-  using K = Taps<kBicubic>;
+  using K = Taps<true>;
   const float first = static_cast<float>(r0);
   const float last = static_cast<float>(r1 - 1);
   const float fy = floorf(y);
@@ -242,12 +244,12 @@ __host__ __device__ constexpr int items_of() {
   return 32 / static_cast<int>(sizeof(T));
 }
 
-template <bool kBicubic, typename T, int kVg, typename Rows>
+template <typename T, int kVg, typename Rows>
 __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads)
 window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                   const float* __restrict__ pos_x, T* __restrict__ out, int64_t P, int R, int C,
                   int V, int n_tiles, int n_groups, int slab_rows, bool vec, Rows rows) {
-  using K = Taps<kBicubic>;
+  using K = Taps<true>;
   constexpr int kItems = items_of<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* slab = reinterpret_cast<T*>(smem);  // [slab_rows, C, kVg]
@@ -339,7 +341,7 @@ window_fwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
     __syncthreads();  // every thread's copies have landed
 #pragma unroll
     for (int j = 0; j < kItems; ++j)
-      acc[j] = add_taps<kBicubic, T, kVg>(acc[j], y[j], x[j], slab, ch, r0, r1, C);
+      acc[j] = add_taps<T, kVg>(acc[j], y[j], x[j], slab, ch, r0, r1, C);
     __syncthreads();  // every thread is done with the slab
   }
 
@@ -366,7 +368,7 @@ struct Fit {
 
 // The Fit of the current device, read once a device (the kernel opted in
 // to avail bytes of dynamic shared memory and to the largest carveout).
-template <bool kBicubic, typename T, int kVg, typename Rows>
+template <typename T, int kVg, typename Rows>
 cudaError_t fit_of(Fit* fit) {
   static std::mutex mu;
   static std::map<int, Fit> fits;
@@ -379,7 +381,7 @@ cudaError_t fit_of(Fit* fit) {
     *fit = known->second;
     return cudaSuccess;
   }
-  auto kernel = window_fwd_kernel<kBicubic, T, kVg, Rows>;
+  auto kernel = window_fwd_kernel<T, kVg, Rows>;
   int smem_block = 0, smem_sm = 0, smem_reserved = 0;
   Fit f;
   err = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, device);
@@ -410,12 +412,12 @@ cudaError_t fit_of(Fit* fit) {
   return cudaSuccess;
 }
 
-template <bool kBicubic, typename T, int kVg, typename Rows>
+template <typename T, int kVg, typename Rows>
 int launch_groups(const void* field, const float* py, const float* px, void* out, int64_t B,
                   int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows) {
   constexpr int kItems = items_of<T>();
   Fit fit;
-  const cudaError_t err = fit_of<kBicubic, T, kVg, Rows>(&fit);
+  const cudaError_t err = fit_of<T, kVg, Rows>(&fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t row_bytes = static_cast<int64_t>(C) * kVg * sizeof(T);
   if (row_bytes > fit.avail) return kNoFit;
@@ -435,7 +437,7 @@ int launch_groups(const void* field, const float* py, const float* px, void* out
   const int64_t smem = slab_rows * row_bytes;
   const bool vec = wide_cell<T, kVg>() && V % kVg == 0 &&
                    reinterpret_cast<uintptr_t>(field) % kCopyBytes == 0;
-  window_fwd_kernel<kBicubic, T, kVg, Rows>
+  window_fwd_kernel<T, kVg, Rows>
       <<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem), stream>>>(
           static_cast<const T*>(field), py, px, static_cast<T*>(out), P, R, C, V,
           static_cast<int>(n_tiles(threads)), static_cast<int>(n_groups), slab_rows, vec, rows);
@@ -449,16 +451,16 @@ int launch_groups(const void* field, const float* py, const float* px, void* out
 // position's taps held to rows.rows(p, R).  Returns the CUDA error of the
 // launch (0 on success), cudaErrorInvalidValue where one field row of one
 // channel does not fit in shared memory.
-template <bool kBicubic, typename T, typename Rows = NoBand>
+template <typename T, typename Rows = NoBand>
 int launch_window(const void* field, const float* py, const float* px, void* out, int64_t B,
                   int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows = Rows{}) {
   constexpr int kWide = kCopyBytes / static_cast<int>(sizeof(T));
   if (V >= kWide) {
-    const int res = window::launch_groups<kBicubic, T, kWide, Rows>(field, py, px, out, B, P, R,
+    const int res = window::launch_groups<T, kWide, Rows>(field, py, px, out, B, P, R,
                                                                     C, V, stream, rows);
     if (res != window::kNoFit) return res;
   }
-  const int res = window::launch_groups<kBicubic, T, 1, Rows>(field, py, px, out, B, P, R, C, V,
+  const int res = window::launch_groups<T, 1, Rows>(field, py, px, out, B, P, R, C, V,
                                                               stream, rows);
   return res == window::kNoFit ? static_cast<int>(cudaErrorInvalidValue) : res;
 }

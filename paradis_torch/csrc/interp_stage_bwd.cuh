@@ -1,5 +1,5 @@
-// The backward of the gather-interpolation, for Hopper (sm_90a): one kernel,
-// launched by the three backward entry points (interp_bwd.cu, the
+// The bicubic backward of the gather-interpolation, for Hopper (sm_90a): one
+// kernel, launched by the three backward entry points (interp_bwd.cu, the
 // counterpart of paradis_tpu/ops/interp_pallas.py:_bwd_kernel,
 // interp_chunk_bwd.cu, of _bwd_kernel_chunked, and interp_band_bwd.cu, of
 // _bwd_kernel_banded), so that all three give the same bits of d_py and d_px.
@@ -77,20 +77,18 @@
 // there on departure-like positions (the kernels this one replaced, timed
 // in turns with it: 4.99 / 4.85 unchunked, 5.04 / 4.93 chunked), ~10x the
 // bound; 0.160 / 0.149 at 5.625 deg (0.319 / 0.313), and 0.141 / 0.137 on
-// the 5.625 deg train step's own inputs (0.190 / 0.191).  Bilinear it is
-// slower than the unchunked one-thread-per-output kernel it replaced (1.89 /
-// 1.60 against 1.42 / 1.41 ms at 1.40625 deg): its 4 taps leave the fixed
-// costs below in front.  What holds
-// it back, from ablations in one call (outputs wrong, times only; ms of the
-// 2.19): the pre-pass, staging and stores 0.51, the loads of the visited
-// chunks' positions 0.54 (a channel pair is 8 bytes of each 32-byte sector
-// of the channels-last arrays; co-scheduling the four blocks that share a
-// sector, as a cluster, changed nothing), the taps 0.87 (16 data-dependent
-// shared-memory reads an item, serial per thread, one 1024-thread block an
-// SM), the atomics 0.27 (a float atomicAdd to shared memory is a
-// compare-and-swap loop, ATOMS.CAST.SPIN, on sm_90).  Groups of 4 or 8
-// channels, 512-thread blocks two an SM, and loads issued ahead measured no
-// faster; a warp-uniform loop over the visited chunks (ballot and ffs) made
+// the 5.625 deg train step's own inputs (0.190 / 0.191).  Bilinear takes its
+// own kernel (interp_bilinear.cuh), whose 4 taps would have left the fixed
+// costs below in front here.  What holds it back, from ablations in one call
+// (outputs wrong, times only; ms of the 2.19): the pre-pass, staging and stores
+// 0.51, the loads of the visited chunks' positions 0.54 (a channel pair is 8
+// bytes of each 32-byte sector of the channels-last arrays; co-scheduling the
+// four blocks that share a sector, as a cluster, changed nothing), the taps
+// 0.87 (16 data-dependent shared-memory reads an item, serial per thread, one
+// 1024-thread block an SM), the atomics 0.27 (a float atomicAdd to shared
+// memory is a compare-and-swap loop, ATOMS.CAST.SPIN, on sm_90).  Groups of 4
+// or 8 channels, 512-thread blocks two an SM, and loads sent ahead measured
+// no faster; a warp-uniform loop over the visited chunks (ballot and ffs) made
 // the compare-and-swap loops 3-6x slower.
 
 #pragma once
@@ -122,12 +120,12 @@ __host__ __device__ constexpr int64_t span_ints(int64_t B, int64_t P, int64_t V)
 // tap row) of the chunk's items of the group, (INT_MAX, INT_MIN) where none
 // has a kept row; and the zero sums of d_py and d_px of each item without
 // one (NaN and inf too), which no slab visits.
-template <bool kBicubic, typename TG, typename Rows>
+template <typename TG, typename Rows>
 __global__ void __launch_bounds__(kSpanThreads)
 span_kernel(const float* __restrict__ pos_y, const TG* __restrict__ grad,
             float* __restrict__ d_py, float* __restrict__ d_px, int2* __restrict__ span,
             int64_t B, int64_t P, int R, int V, Rows rows) {
-  using K = Taps<kBicubic>;
+  using K = Taps<true>;
   const int64_t n_groups = (V + kWide - 1) / kWide;
   const int64_t n_chunks = (P + kSpanPos - 1) / kSpanPos;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kSpanThreads + threadIdx.x;
@@ -223,11 +221,11 @@ __device__ __forceinline__ void stage_group(T* slab, const T* src, int n_cells, 
 // in *sum_y, *sum_x.  Their float order: over a tap row's columns first, then
 // the rows in increasing order.  Other rows, and columns outside the field,
 // are skipped (NaN and inf too).
-template <bool kBicubic, bool kSums, typename T, int kVg>
+template <bool kSums, typename T, int kVg>
 __device__ __forceinline__ void add_bwd_taps(float y, float x, float g, const T* f, float* acc,
                                              int ch, int r0, int r1, float keep_lo,
                                              float keep_hi, int C, float* sum_y, float* sum_x) {
-  using K = Taps<kBicubic>;
+  using K = Taps<true>;
   const float fy = floorf(y);
   const float fx = floorf(x);
   float wy[K::kN], wx[K::kN], dwy[K::kN], dwx[K::kN];
@@ -272,7 +270,7 @@ __device__ __forceinline__ void add_bwd_taps(float y, float x, float g, const T*
   }
 }
 
-template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
+template <typename T, typename TG, int kVg, typename Rows>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 slab_bwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                 const float* __restrict__ pos_x, const TG* __restrict__ grad,
@@ -280,7 +278,7 @@ slab_bwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
                 const int2* __restrict__ span, int64_t P, int R, int C, int V, int n_slabs,
                 int n_groups, int slab_rows, int64_t acc_at, bool vec_in, bool vec_out,
                 Rows rows) {
-  using K = Taps<kBicubic>;
+  using K = Taps<true>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* f = reinterpret_cast<T*>(smem);                         // [f1 - r0, C, kVg]
   float* acc = reinterpret_cast<float*>(smem + acc_at);      // [r1 - r0, C, kVg]
@@ -337,12 +335,12 @@ slab_bwd_kernel(const T* __restrict__ field, const float* __restrict__ pos_y,
       const float x = pos_x[at];
       if (head >= first) {  // the item's own slab: its sums, and its taps in [r0, r1)
         float sum_y, sum_x;
-        add_bwd_taps<kBicubic, true, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
+        add_bwd_taps<true, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
                                              &sum_y, &sum_x);
         d_py[at] = g * sum_y;
         d_px[at] = g * sum_x;
       } else {  // a later slab of its kept rows: their d_field taps only
-        add_bwd_taps<kBicubic, false, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
+        add_bwd_taps<false, T, kVg>(y, x, g, f, acc, ch, r0, r1, keep_lo, keep_hi, C,
                                               nullptr, nullptr);
       }
     }
@@ -375,7 +373,7 @@ struct Fit {
   int64_t share;
 };
 
-template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
+template <typename T, typename TG, int kVg, typename Rows>
 cudaError_t fit_of(Fit* fit) {
   static std::mutex mu;
   static std::map<int, Fit> fits;
@@ -388,7 +386,7 @@ cudaError_t fit_of(Fit* fit) {
     *fit = known->second;
     return cudaSuccess;
   }
-  auto kernel = slab_bwd_kernel<kBicubic, T, TG, kVg, Rows>;
+  auto kernel = slab_bwd_kernel<T, TG, kVg, Rows>;
   int smem_block = 0, smem_sm = 0, smem_reserved = 0;
   Fit f;
   err = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, device);
@@ -424,11 +422,11 @@ struct Plan {
 // The plan of a launch with groups of kVg channels: cudaSuccess, kNoFit
 // where a slab of one row (and its halo) does not fit in shared memory, or
 // a CUDA error.
-template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
+template <typename T, typename TG, int kVg, typename Rows>
 int plan_of(int64_t B, int R, int C, int V, Plan* plan) {
-  constexpr int kHalo = Taps<kBicubic>::kN - 1;
+  constexpr int kHalo = Taps<true>::kN - 1;
   Fit fit;
-  const cudaError_t err = fit_of<kBicubic, T, TG, kVg, Rows>(&fit);
+  const cudaError_t err = fit_of<T, TG, kVg, Rows>(&fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t f_row = static_cast<int64_t>(C) * cell_bytes<T, kVg>();  // a staged row
   const int64_t a_row = static_cast<int64_t>(C) * kVg * 4;               // an accumulator row
@@ -457,7 +455,7 @@ int plan_of(int64_t B, int R, int C, int V, Plan* plan) {
   return plan->blocks > 0x7fffffff ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-template <bool kBicubic, typename T, typename TG, int kVg, typename Rows>
+template <typename T, typename TG, int kVg, typename Rows>
 int launch_slabs(const Plan& plan, const void* field, const float* py, const float* px,
                  const void* grad, void* d_field, float* d_py, float* d_px, const int2* span,
                  int64_t P, int R, int C, int V, cudaStream_t stream, Rows rows) {
@@ -465,7 +463,7 @@ int launch_slabs(const Plan& plan, const void* field, const float* py, const flo
                       reinterpret_cast<uintptr_t>(field) % cell_bytes<T, kVg>() == 0;
   const bool vec_out = V % kVg == 0 &&
                        reinterpret_cast<uintptr_t>(d_field) % cell_bytes<T, kVg>() == 0;
-  slab_bwd_kernel<kBicubic, T, TG, kVg, Rows>
+  slab_bwd_kernel<T, TG, kVg, Rows>
       <<<static_cast<unsigned>(plan.blocks), kThreads, static_cast<size_t>(plan.smem),
          stream>>>(static_cast<const T*>(field), py, px, static_cast<const TG*>(grad),
                    static_cast<T*>(d_field), d_py, d_px, span, P, R, C, V, plan.n_slabs,
@@ -476,38 +474,38 @@ int launch_slabs(const Plan& plan, const void* field, const float* py, const flo
 // The span pre-pass, then the slabs of the widest channel group whose row
 // fits: kWide channels where V has them, else one.  Where neither fits,
 // nothing is launched.
-template <bool kBicubic, typename T, typename TG, typename Rows>
+template <typename T, typename TG, typename Rows>
 int launch(const void* field, const float* py, const float* px, const void* grad,
            void* d_field, float* d_py, float* d_px, int2* span, int64_t B, int64_t P, int R,
            int C, int V, cudaStream_t stream, Rows rows) {
   Plan plan;
-  int res = V >= kWide ? plan_of<kBicubic, T, TG, kWide, Rows>(B, R, C, V, &plan) : kNoFit;
+  int res = V >= kWide ? plan_of<T, TG, kWide, Rows>(B, R, C, V, &plan) : kNoFit;
   const bool wide = res == 0;
-  if (res == kNoFit) res = plan_of<kBicubic, T, TG, 1, Rows>(B, R, C, V, &plan);
+  if (res == kNoFit) res = plan_of<T, TG, 1, Rows>(B, R, C, V, &plan);
   if (res == kNoFit) return cudaErrorInvalidValue;
   if (res != 0) return res;
   const int64_t threads = span_ints(B, P, V) / 2;
-  span_kernel<kBicubic, TG, Rows>
+  span_kernel<TG, Rows>
       <<<static_cast<unsigned>((threads + kSpanThreads - 1) / kSpanThreads), kSpanThreads, 0,
          stream>>>(py, static_cast<const TG*>(grad), d_py, d_px, span, B, P, R, V, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return wide ? launch_slabs<kBicubic, T, TG, kWide, Rows>(plan, field, py, px, grad, d_field,
+  return wide ? launch_slabs<T, TG, kWide, Rows>(plan, field, py, px, grad, d_field,
                                                            d_py, d_px, span, P, R, C, V, stream,
                                                            rows)
-              : launch_slabs<kBicubic, T, TG, 1, Rows>(plan, field, py, px, grad, d_field, d_py,
+              : launch_slabs<T, TG, 1, Rows>(plan, field, py, px, grad, d_field, d_py,
                                                        d_px, span, P, R, C, V, stream, rows);
 }
 
-template <bool kBicubic, typename T, typename Rows>
+template <typename T, typename Rows>
 int launch_grad(const void* field, const float* py, const float* px, const void* grad,
                 void* d_field, float* d_py, float* d_px, int2* span, int64_t B, int64_t P, int R,
                 int C, int V, int grad_dtype, cudaStream_t stream, Rows rows) {
   if (grad_dtype == 0)
-    return launch<kBicubic, T, float, Rows>(field, py, px, grad, d_field, d_py, d_px, span, B,
+    return launch<T, float, Rows>(field, py, px, grad, d_field, d_py, d_px, span, B,
                                             P, R, C, V, stream, rows);
   if (grad_dtype == 1)
-    return launch<kBicubic, T, __nv_bfloat16, Rows>(field, py, px, grad, d_field, d_py, d_px,
+    return launch<T, __nv_bfloat16, Rows>(field, py, px, grad, d_field, d_py, d_px,
                                                     span, B, P, R, C, V, stream, rows);
   return cudaErrorInvalidValue;
 }
@@ -515,7 +513,8 @@ int launch_grad(const void* field, const float* py, const float* px, const void*
 }  // namespace slab_bwd
 
 // Launch the backward on the stream: the span pre-pass, then the slabs.
-// mode: 0 bilinear, 1 bicubic; dtype (field and d_field), grad_dtype (g):
+// mode: 1 bicubic (bilinear, 0, has its own kernel: interp_bilinear.cuh);
+// dtype (field and d_field), grad_dtype (g):
 // 0 float32, 1 bfloat16.  d_field is [B,R,C,V] in the field's type, written
 // whole; d_py and d_px are float32 [B,P,V]; span is int32 scratch of
 // span_ints(B, P, V) elements (2 * B * ceil(V / 2) * ceil(P / 32)); each
@@ -537,19 +536,12 @@ int launch_slab_bwd(const void* field, const void* pos_y, const void* pos_x, con
   int2* sp = static_cast<int2*>(span);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 1 && dtype == 0)
-    return slab_bwd::launch_grad<true, float, Rows>(field, py, px, grad, d_field, dy, dx, sp, B,
+    return slab_bwd::launch_grad<float, Rows>(field, py, px, grad, d_field, dy, dx, sp, B,
                                                     P, R, C, V, grad_dtype, s, rows);
   if (mode == 1 && dtype == 1)
-    return slab_bwd::launch_grad<true, __nv_bfloat16, Rows>(field, py, px, grad, d_field, dy, dx,
+    return slab_bwd::launch_grad<__nv_bfloat16, Rows>(field, py, px, grad, d_field, dy, dx,
                                                             sp, B, P, R, C, V, grad_dtype, s,
                                                             rows);
-  if (mode == 0 && dtype == 0)
-    return slab_bwd::launch_grad<false, float, Rows>(field, py, px, grad, d_field, dy, dx, sp, B,
-                                                     P, R, C, V, grad_dtype, s, rows);
-  if (mode == 0 && dtype == 1)
-    return slab_bwd::launch_grad<false, __nv_bfloat16, Rows>(field, py, px, grad, d_field, dy,
-                                                             dx, sp, B, P, R, C, V, grad_dtype,
-                                                             s, rows);
   return cudaErrorInvalidValue;
 }
 

@@ -9,11 +9,14 @@ which of its two routes a field takes); ``interp_bwd_cuda``
 (``csrc/interp_band_bwd.cu``) replace ``_fwd_kernel_banded`` and
 ``_bwd_kernel_banded``; ``interp_chunk_fwd_cuda`` (``csrc/interp_chunk_fwd.cu``)
 and ``interp_chunk_bwd_cuda`` (``csrc/interp_chunk_bwd.cu``) replace
-``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked``.  The banded and
-row-chunked forwards, and the unbanded one on a field too large to keep
+``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked``.  Bicubic: the banded
+and row-chunked forwards, and the unbanded one on a field too large to keep
 resident, launch one window kernel (``csrc/interp_stage.cuh``); the three
-backwards launch one row-slab kernel (``csrc/interp_stage_bwd.cuh``); the
-banded entry points with a per-position band filter.  Each wrapper launches
+backwards launch one row-slab kernel (``csrc/interp_stage_bwd.cuh``).
+Bilinear: the three forwards launch one forward (resident where a channel
+group's whole field fits in shared memory, else tiled) and the three
+backwards one tiled backward (``csrc/interp_bilinear.cuh``).  The banded
+entry points run with a per-position band filter.  Each wrapper launches
 its kernel on CUDA tensors or raises: there is no fallback.  The pairing is
 two ``torch.library`` custom ops, ``paradis::interp`` (``interp_op``) and
 ``paradis::interp_bwd`` (``interp_bwd_op``), tied by
@@ -54,22 +57,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The C entry point ``paradis_<name>`` of each kernel: its source in
 # ``csrc/``, then its count of pointers, of 64-bit integers and of ints before
 # the stream.  A forward takes field, pos_y, pos_x, out; a backward field,
-# pos_y, pos_x, g, d_field, d_py, d_px and their span scratch
-# (``_bwd_outputs``); then B, P; then R, C, V, for a banded
-# kernel W, rpb, band_rows, halo_lo, pad, for a chunked one rw; then mode,
-# dtype, and for a backward g's dtype.  The weight-generation kernels take
+# pos_y, pos_x, g, d_field, d_py, d_px and their scratch (``_bwd_outputs``);
+# then B, P; then R, C, V, W (positions an arrival row), for a banded kernel
+# rpb, band_rows, halo_lo, pad, for a chunked one rw; then mode, dtype, and
+# for a backward g's dtype.  The weight-generation kernels take
 # pos_y, pos_x, out; the element count; R, C, mode.  The contraction kernels
 # (``ops/interp_mm.py``) take w, f, out, or field, py, px, g, d_field, d_py,
 # d_px; then B·V, P; then R, C, and vb, pb or the field's dtype; then cdt.
 # The route query of the forward takes R, C, mode, dtype and launches nothing.
 _SIGNATURES = {
-    "interp_fwd": ("interp_fwd", 4, 2, 5),
+    "interp_fwd": ("interp_fwd", 4, 2, 6),
     "interp_fwd_route": ("interp_fwd", 0, 0, 4),
-    "interp_bwd": ("interp_bwd", 8, 2, 6),
+    "interp_bwd": ("interp_bwd", 8, 2, 7),
     "interp_band_fwd": ("interp_band_fwd", 4, 2, 10),
     "interp_band_bwd": ("interp_band_bwd", 8, 2, 11),
-    "interp_chunk_fwd": ("interp_chunk_fwd", 4, 2, 6),
-    "interp_chunk_bwd": ("interp_chunk_bwd", 8, 2, 7),
+    "interp_chunk_fwd": ("interp_chunk_fwd", 4, 2, 7),
+    "interp_chunk_bwd": ("interp_chunk_bwd", 8, 2, 8),
     "interp_gen": ("interp_gen", 3, 1, 3),
     "interp_bwd_gen": ("interp_gen", 3, 1, 3),
     "interp_mm": ("interp_mm", 3, 2, 5),
@@ -126,8 +129,10 @@ def _stream(device: torch.device) -> int:
 
 def interp_fwd_route(field: torch.Tensor, mode: str = "bicubic") -> str:
     """The route ``interp_fwd_cuda`` takes for ``field`` [B, R, C, V] on its
-    CUDA device: ``"resident"`` where two slabs of a channel group's whole
-    R × C field fit in shared memory, else ``"window"`` (each tile's own row
+    CUDA device: bilinear, ``"bilinear"`` (the route of
+    ``csrc/interp_bilinear.cuh``, which every bilinear forward takes);
+    bicubic, ``"resident"`` where two slabs of a channel group's whole R × C
+    field fit in shared memory, else ``"window"`` (each tile's own row
     window, the row-chunked forward's staging)."""
     check_mode(mode)
     if field.dim() != 4 or field.dtype not in _DTYPES or field.device.type != "cuda":
@@ -136,9 +141,9 @@ def interp_fwd_route(field: torch.Tensor, mode: str = "bicubic") -> str:
     fn = _kernel("interp_fwd_route")
     with torch.cuda.device(field.device):
         route = fn(field.shape[1], field.shape[2], _MODES[mode], _DTYPES[field.dtype], None)
-    if route not in (0, 1):
+    if route not in (0, 1, 2):
         raise RuntimeError(f"interp_fwd route query failed with CUDA error {-route}")
-    return ("resident", "window")[route]
+    return ("resident", "window", "bilinear")[route]
 
 
 def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
@@ -157,7 +162,8 @@ def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
     fn = _kernel("interp_fwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), out.data_ptr(),
-                 B, H * W, R, C, V, _MODES[mode], _DTYPES[field.dtype], _stream(field.device))
+                 B, H * W, R, C, V, W, _MODES[mode], _DTYPES[field.dtype],
+                 _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_fwd kernel launch failed with CUDA error {err} "
                            f"(a row of {C} columns may not fit in shared memory)")
@@ -171,18 +177,23 @@ def interp_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
 _SPAN_POSITIONS = 32
 
 
-def _bwd_outputs(field: torch.Tensor, H: int, W: int):
-    """``(d_field, d_py, d_px, span)`` of the backward kernels,
+def _bwd_outputs(field: torch.Tensor, H: int, W: int, mode: str):
+    """``(d_field, d_py, d_px, scratch)`` of the backward kernels,
     uninitialised: the kernels write every element, d_field in the field's
-    dtype.  ``span`` is their scratch, int32 [B,
-    ceil(V / 2), ceil(H·W / 32), 2]: the first and last head row of each
-    chunk of 32 positions of each channel pair."""
+    dtype.  ``scratch`` is theirs: bicubic, the span, int32 [B,
+    ceil(V / 2), ceil(H·W / 32), 2], the first and last head row of each
+    chunk of 32 positions of each channel pair; bilinear, the float32
+    accumulator [B, R, C, V] of a bf16 d_field (empty for a float32 one)."""
     B, R, C, V = field.shape
     d_field = torch.empty((B, R, C, V), dtype=field.dtype, device=field.device)
     d_py = torch.empty((B, H, W, V), dtype=torch.float32, device=field.device)
-    span = torch.empty((B, (V + 1) // 2, -(-H * W // _SPAN_POSITIONS), 2), dtype=torch.int32,
-                       device=field.device)
-    return d_field, d_py, torch.empty_like(d_py), span
+    if mode == "bicubic":
+        scratch = torch.empty((B, (V + 1) // 2, -(-H * W // _SPAN_POSITIONS), 2),
+                              dtype=torch.int32, device=field.device)
+    else:
+        shape = (B, R, C, V) if field.dtype == torch.bfloat16 else (0,)
+        scratch = torch.empty(shape, dtype=torch.float32, device=field.device)
+    return d_field, d_py, torch.empty_like(d_py), scratch
 
 
 def interp_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tensor,
@@ -196,14 +207,14 @@ def interp_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.Tenso
     _check(field, pix_y, pix_x, mode, g=g)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
+    d_field, d_py, d_px, scratch = _bwd_outputs(field, H, W, mode)
     if d_py.numel() == 0:
         return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
-                 H * W, R, C, V, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), scratch.data_ptr(), B,
+                 H * W, R, C, V, W, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
                  _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_bwd kernel launch failed with CUDA error {err} "
@@ -262,13 +273,13 @@ def interp_band_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch.
     plan = _check_spec(field, pix_y, spec)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
+    d_field, d_py, d_px, scratch = _bwd_outputs(field, H, W, mode)
     if d_py.numel() == 0:
         return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_band_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), scratch.data_ptr(), B,
                  H * W, R, C, V, *plan, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
                  _stream(field.device))
     if err != 0:
@@ -295,7 +306,7 @@ def interp_chunk_fwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch
     fn = _kernel("interp_chunk_fwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), out.data_ptr(),
-                 B, H * W, R, C, V, rw, _MODES[mode], _DTYPES[field.dtype],
+                 B, H * W, R, C, V, W, rw, _MODES[mode], _DTYPES[field.dtype],
                  _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_chunk_fwd kernel launch failed with CUDA error {err} "
@@ -314,14 +325,14 @@ def interp_chunk_bwd_cuda(field: torch.Tensor, pix_y: torch.Tensor, pix_x: torch
     check_rw(rw)
     B, R, C, V = field.shape
     H, W = pix_y.shape[1], pix_y.shape[2]
-    d_field, d_py, d_px, span = _bwd_outputs(field, H, W)
+    d_field, d_py, d_px, scratch = _bwd_outputs(field, H, W, mode)
     if d_py.numel() == 0:
         return d_field.zero_(), d_py, d_px
     fn = _kernel("interp_chunk_bwd")
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), pix_y.data_ptr(), pix_x.data_ptr(), g.data_ptr(),
-                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), span.data_ptr(), B,
-                 H * W, R, C, V, rw, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
+                 d_field.data_ptr(), d_py.data_ptr(), d_px.data_ptr(), scratch.data_ptr(), B,
+                 H * W, R, C, V, W, rw, _MODES[mode], _DTYPES[field.dtype], _DTYPES[g.dtype],
                  _stream(field.device))
     if err != 0:
         raise RuntimeError(f"interp_chunk_bwd kernel launch failed with CUDA error {err} "

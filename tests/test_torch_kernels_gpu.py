@@ -375,7 +375,8 @@ def test_chunk_kernels_match_plain_and_unbanded_on_card(mode, dtype, case):
         assert ok, (name, err)
 
 
-# (B, R, C, V, H, W), positions and route of the unbanded forward's cases:
+# (B, R, C, V, H, W), positions and bicubic route of the unbanded forward's
+# cases (bilinear takes its own route, "bilinear", on every field):
 # the 5.625° fields (bicubic and bilinear pads) and a tail take the resident
 # route, the 1.40625° field (132 × 260 rows and columns) the window route,
 # at full size with 1024-thread blocks and over 48 KB of shared memory a
@@ -435,16 +436,18 @@ def _fwd_inputs(shape, kind, dtype, seed, unaligned):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
 def test_fwd_kernel_matches_chunked_bitwise_and_plain_on_card(mode, dtype, case):
-    """The unbanded forward kernel takes the route the case names, launches
-    once, agrees with ``interp_plain`` (limits as above: the same fp32 sums in
-    another FMA order, one bf16 ulp for a bf16 result) and equals the
+    """The unbanded forward kernel takes the route the case names (bilinear:
+    its own route, whatever the case), launches once, agrees with
+    ``interp_plain`` (limits as above: the same fp32 sums in another FMA
+    order, one bf16 ulp for a bf16 result) and equals the
     row-chunked kernel bitwise (the same float order per position); with
     every tap outside the field, it is zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     shape, kind = FWD_CASES[case]
     f, y, x = _fwd_inputs(shape, kind, dtype, seed=len(case), unaligned="unaligned" in case)
-    assert interp_cuda.interp_fwd_route(f, mode) == case.split("-")[0]
+    route = "bilinear" if mode == "bilinear" else case.split("-")[0]
+    assert interp_cuda.interp_fwd_route(f, mode) == route
     before = interp_cuda.launches
     out = interp_cuda.interp_fwd_cuda(f, y, x, mode)
     torch.cuda.synchronize()
@@ -807,3 +810,188 @@ def test_toy_train_step_under_each_remat_policy_on_card(policy):
         grads[name] = torch.cat([p.grad.flatten() for p in model.parameters()])
     scale = grads["none"].abs().max()
     assert (grads[policy] - grads["none"]).abs().max() <= 1e-6 * scale
+
+
+# The bilinear route (``csrc/interp_bilinear.cuh``): its cases, (B, R, C, V,
+# H, W) and positions.  ``edge``: taps on the padded edge (positions over
+# the outermost cells and up to 1.5 px beyond); ``nonfinite``: a tenth each
+# NaN, inf and -inf; ``v77-offset``: V 77 (no multiple of a 32-channel
+# group) with every tensor a view one element into its buffer (no 16-byte
+# alignment); ``integer``: integer positions, where K' is zero; ``wide``: a
+# field whose one row of one channel (65,536 fp32 columns, 256 KB) does not
+# fit in shared memory, which the bicubic kernels refuse and bilinear takes;
+# ``tall``: 1.40625° rows with few channels, displaced well beyond the
+# staged window; ``nan-first``: every eighth arrival row not finite, so that
+# every tile's first position is, and its window falls back to the centred
+# pad; ``block-lat`` and ``block-2x2``: one rank's block of positions in the
+# whole gathered 1.40625° field of the spatial layouts (rows 64-127 of a
+# 2-way lat split; rows 64-127 by columns 128-255 of a 2 x 2 one), off the
+# field's centre, at BLOCK_AT.
+BILINEAR_CASES = {
+    "edge": ((1, 34, 66, 64, 32, 64), "edge"),
+    "nonfinite": ((1, 34, 66, 64, 32, 64), "nonfinite"),
+    "v77-offset": ((2, 34, 66, 77, 32, 64), "departure"),
+    "integer": ((1, 34, 66, 96, 32, 64), "integer"),
+    "wide": ((1, 4, 65536, 1, 2, 65534), "departure"),
+    "tall": ((1, 130, 258, 8, 128, 256), "far"),
+    "nan-first": ((1, 34, 66, 64, 32, 64), "nanfirst"),
+    "block-lat": ((1, 130, 258, 64, 64, 256), "departure"),
+    "block-2x2": ((1, 130, 258, 64, 64, 128), "departure"),
+}
+# the field's row and column of a block's first arrival point (pad 1)
+BLOCK_AT = {"block-lat": (65, 1), "block-2x2": (65, 129)}
+
+
+def _bilinear_inputs(case, dtype, seed):
+    """Field, positions and cotangent of ``BILINEAR_CASES[case]``, as CUDA
+    tensors (views one element into their buffers for ``v77-offset``)."""
+    shape, kind = BILINEAR_CASES[case]
+    B, R, C, V, H, W = shape
+    rng = np.random.default_rng(seed)
+    field = rng.normal(size=(B, R, C, V)).astype(np.float32)
+    at_y, at_x = BLOCK_AT.get(case, ((R - H) // 2, (C - W) // 2))
+    ay = (np.arange(H, dtype=np.float32) + at_y)[None, :, None, None]
+    ax = (np.arange(W, dtype=np.float32) + at_x)[None, None, :, None]
+    py = np.broadcast_to(ay + rng.uniform(-2.0, 2.0, size=(B, H, W, V)), (B, H, W, V))
+    px = np.broadcast_to(ax + rng.uniform(-2.0, 2.0, size=(B, H, W, V)), (B, H, W, V))
+    if kind == "edge":
+        py = rng.choice([-1.5, -1.0, -0.5, 0.0, 0.25, R - 1.5, R - 1.0, R - 0.5, R + 0.5],
+                        size=(B, H, W, V)) + 0.0 * py
+        px = np.where(rng.random(px.shape) < 0.5, px,
+                      rng.choice([-1.5, -0.5, 0.0, C - 1.0, C - 0.5], size=px.shape))
+    elif kind == "nonfinite":
+        pick = rng.random(py.shape)
+        bad = np.select([pick < 0.1, pick < 0.2, pick < 0.3], [np.nan, np.inf, -np.inf], 0.0)
+        axis = rng.random(py.shape) < 0.5
+        py = np.where((pick < 0.3) & axis, bad, py)
+        px = np.where((pick < 0.3) & ~axis, bad, px)
+    elif kind == "integer":
+        py, px = np.round(py), np.round(px)
+    elif kind == "far":
+        py = py + rng.uniform(-12.0, 12.0, size=py.shape)
+    elif kind == "nanfirst":
+        py = np.where((np.arange(H) % 8 == 0)[None, :, None, None], np.nan, py)
+    g = rng.normal(size=(B, H, W, V)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+
+    def cuda(a, dt=torch.float32):
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda().to(dt)
+        if case == "v77-offset":
+            buf = torch.empty(t.numel() + 1, dtype=dt, device="cuda")
+            t = buf[1:].view(t.shape).copy_(t)
+            assert t.is_contiguous() and t.data_ptr() % 16
+        return t
+    return cuda(field, tdt), cuda(py), cuda(px), cuda(g, tdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilinear_route_is_reported_for_every_bilinear_field(dtype):
+    """``interp_fwd_route`` reports the bilinear route for every bilinear
+    field (the 5.625° and 1.40625° bilinear-padded fields, a tail, a field
+    too wide for the window kernel) and leaves bicubic's routes as they
+    were: resident at 5.625°, window at 1.40625°."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tdt = getattr(torch, dtype)
+    for R, C, V in ((34, 66, 768), (130, 258, 768), (13, 22, 77), (4, 65536, 1), (1, 1, 1)):
+        f = torch.zeros(1, R, C, V, dtype=tdt, device="cuda")
+        assert interp_cuda.interp_fwd_route(f, "bilinear") == "bilinear"
+    assert interp_cuda.interp_fwd_route(torch.zeros(1, 36, 68, 8, dtype=tdt, device="cuda"),
+                                        "bicubic") == "resident"
+    assert interp_cuda.interp_fwd_route(torch.zeros(1, 132, 260, 8, dtype=tdt, device="cuda"),
+                                        "bicubic") == "window"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BILINEAR_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilinear_kernels_match_plain_on_card(dtype, case):
+    """The bilinear forward and backward of every entry point against the
+    plain versions (limits as above: the same fp32 sums in another FMA
+    order, d_field in the atomics' order, one bf16 ulp for a bf16 result):
+    the unbanded and row-chunked forwards bitwise equal, the backwards' d_py
+    and d_px bitwise equal and reproducible, one launch each; zero d_py and
+    d_px at integer positions (K' = 0 at the kinks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f, y, x, g = _bilinear_inputs(case, dtype, seed=len(case))
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    n0 = _counts()
+    out = interp_cuda.interp_fwd_cuda(f, y, x, "bilinear")
+    chunked = interp_cuda.interp_chunk_fwd_cuda(f, y, x, 8, "bilinear")
+    grads = interp_cuda.interp_bwd_cuda(f, y, x, g, "bilinear")
+    again = interp_cuda.interp_bwd_cuda(f, y, x, g, "bilinear")
+    chunked_grads = interp_cuda.interp_chunk_bwd_cuda(f, y, x, g, 32, "bilinear")
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(n0, _counts())] == [1, 2, 0, 0, 1, 1]
+    assert out.dtype == f.dtype and grads[0].dtype == f.dtype
+    ok, err = _within(out, interp_plain(f, y, x, "bilinear"), 1e-5, rel)
+    assert ok, err
+    assert torch.equal(out, chunked)
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    ref = interp_bwd_plain(f, y, x, g, "bilinear")
+    for name, o, r, tol in zip(("d_field", "d_py", "d_px"), grads, ref, tols):
+        ok, err = _within(o, r, *tol)
+        assert ok, (name, err)
+        assert torch.isfinite(o).all(), name
+    for other in (again, chunked_grads):
+        assert torch.equal(grads[1], other[1]) and torch.equal(grads[2], other[2])
+        ok, err = _within(other[0], ref[0], *tols[0])
+        assert ok, err
+    if case == "integer":
+        assert not grads[1].any() and not grads[2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(32, 64), (128, 256)], ids=["5.625", "1.40625"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilinear_entry_points_agree_bitwise_at_both_grids(dtype, grid):
+    """At both grids (bilinear pad 1, V 96), on departure positions clamped
+    to the band bound of ``compute.interp_band_rad=0.3`` (12.2 px at
+    1.40625°; at 5.625°, whose 3.06 px turns the band gate off, 3 px): the
+    unbanded,
+    row-chunked and row-banded forwards give the same bits, and so do the
+    three backwards' d_py and d_px; each banded kernel against its plain
+    version, d_field of all three within the atomics' order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paradis_torch.model.paradis import band_bound_pixels
+    from paradis_torch.ops.interp_band import band_spec, interp_band_bwd_plain, interp_band_plain
+    from paradis_torch.sphere.geometry import equiangular_lat_lon
+
+    H, W = grid
+    R, C, V = H + 2, W + 2, 96
+    bound = band_bound_pixels(0.3, equiangular_lat_lon(H, W, include_poles=False)[0])
+    if H == 32:
+        bound = min(bound, 3.0)
+    spec = band_spec(H, W, R, "bilinear", bound)
+    assert spec is not None
+    rng = np.random.default_rng(H)
+    field = rng.normal(size=(1, R, C, V)).astype(np.float32)
+    arr = (np.arange(H, dtype=np.float32) + 1)[None, :, None, None]
+    py = np.clip(arr + 1.5 * rng.normal(size=(1, H, W, V)), arr - bound, arr + bound)
+    px = (np.arange(W, dtype=np.float32) + 1)[None, None, :, None] + 1.5 * rng.normal(
+        size=(1, H, W, V))
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy(field).cuda().to(tdt)
+    y = torch.from_numpy(py.astype(np.float32)).cuda()
+    x = torch.from_numpy(px.astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=(1, H, W, V)).astype(np.float32)).cuda().to(tdt)
+    rw = 8 if H == 32 else 32
+    out = interp_cuda.interp_fwd_cuda(f, y, x, "bilinear")
+    assert torch.equal(out, interp_cuda.interp_chunk_fwd_cuda(f, y, x, rw, "bilinear"))
+    band = interp_cuda.interp_band_fwd_cuda(f, y, x, spec, "bilinear")
+    assert torch.equal(out, band)
+    rel = 1e-5 if dtype == "float32" else 1e-5 + 2.0 ** -7
+    ok, err = _within(band, interp_band_plain(f, y, x, spec, "bilinear"), 1e-5, rel)
+    assert ok, err
+    grads = interp_cuda.interp_bwd_cuda(f, y, x, g, "bilinear")
+    ref = interp_band_bwd_plain(f, y, x, g, spec, "bilinear")
+    tols = ((2e-5, rel), (3e-5, 1e-5), (3e-5, 1e-5))
+    for other in (interp_cuda.interp_chunk_bwd_cuda(f, y, x, g, rw, "bilinear"),
+                  interp_cuda.interp_band_bwd_cuda(f, y, x, g, spec, "bilinear")):
+        assert torch.equal(grads[1], other[1]) and torch.equal(grads[2], other[2])
+        for name, o, r, tol in zip(("d_field", "d_py", "d_px"), other, ref, tols):
+            ok, err = _within(o, r, *tol)
+            assert ok, (name, err)

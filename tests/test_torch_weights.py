@@ -334,7 +334,8 @@ def test_no_jax_import_in_the_port_or_the_smoke_script():
                 "tools/bench_model.py", "tools/flagship.py", "tools/bench_forecast.py",
                 "tools/bench_highres.py", "tools/bench_pipeline.py", "tools/profile_step.py",
                 "tools/roofline.py", "tools/profile_live.py", "tools/soak.py",
-                "tools/rehearsal.py", "tools/ns_convergence.py", "tools/lq_convergence.py"):
+                "tools/rehearsal.py", "tools/ns_convergence.py", "tools/lq_convergence.py",
+                "tools/bench_bilinear.py"):
         assert ROOT / "paradis_torch" / new in files, new
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
