@@ -21,6 +21,8 @@ import time
 import numpy as np
 import torch
 
+from paradis_torch.utils.tracing import span
+
 
 def autoregress_next_input(dyn_input: torch.Tensor, output: torch.Tensor,
                            num_common: int, n_time_inputs: int) -> torch.Tensor:
@@ -63,15 +65,16 @@ def make_forecast_rollout(model, cfg):
             if batch[key].device != model.device:
                 raise ValueError(f"batch[{key!r}] is on {batch[key].device}, "
                                  f"the model on {model.device}")
-        with torch.inference_mode():
+        with torch.inference_mode(), span("rollout"):
             dyn = batch["input"]
             forcings = batch["forcings"]
             B = dyn.shape[0]
             constants = batch["constants"].expand(B, *batch["constants"].shape[1:])
             stored = []
             for t in range(forcings.shape[1]):
-                dyn, out = forecast_step(model, dyn, forcings[:, t], constants,
-                                         num_common_features, n_time)
+                with span("forecast_step"):
+                    dyn, out = forecast_step(model, dyn, forcings[:, t], constants,
+                                             num_common_features, n_time)
                 if t % out_freq == 0:
                     stored.append(out)
             return torch.stack(stored, dim=1).float()

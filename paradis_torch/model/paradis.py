@@ -51,6 +51,7 @@ from paradis_torch.ops.resize import periodic_upsample
 from paradis_torch.sphere.geometry import lonlat_grids
 from paradis_torch.sphere.padding import geocyclic_pad
 from paradis_torch.sphere.partition import spatial_grid, spatial_rules
+from paradis_torch.utils.tracing import span
 
 EARTH_ROTATION_RATE = 7.29212e-5  # rad/s
 STATIC_DIM = 128  # static-encoder output width
@@ -154,15 +155,20 @@ class PhysicsLayer(nn.Module):
                                 hidden_dim=reaction_hidden, **common)
 
     def forward(self, hidden, hidden_static, lat_grid, lon_grid):
-        velocities = self.velocity_net(hidden)
-        u = velocities[..., : self.num_vels]
-        v = velocities[..., self.num_vels :]
-        g_adv = torch.sigmoid(self.alpha_adv).to(hidden.dtype)
-        advected = self.advection(hidden, u, v, self.dt, lat_grid, lon_grid)
-        hidden = hidden + g_adv * (advected - hidden)
-        hidden = hidden + self.diffusion(hidden)
-        reac_in = torch.cat([hidden, hidden_static], dim=-1)
-        return hidden + self.reaction(reac_in)
+        with span("layer"):
+            with span("velocity_net"):
+                velocities = self.velocity_net(hidden)
+            u = velocities[..., : self.num_vels]
+            v = velocities[..., self.num_vels :]
+            g_adv = torch.sigmoid(self.alpha_adv).to(hidden.dtype)
+            with span("advection"):
+                advected = self.advection(hidden, u, v, self.dt, lat_grid, lon_grid)
+            hidden = hidden + g_adv * (advected - hidden)
+            with span("diffusion"):
+                hidden = hidden + self.diffusion(hidden)
+            reac_in = torch.cat([hidden, hidden_static], dim=-1)
+            with span("reaction"):
+                return hidden + self.reaction(reac_in)
 
 
 class Paradis(nn.Module):
@@ -356,12 +362,20 @@ class Paradis(nn.Module):
         h, w = (H, W) if grid is None else grid.block_shape(H, W)
         if fields.shape[-3] != h or fields.shape[-2] != w:
             raise ValueError(f"expected spatial dims {(h, w)}, got {tuple(fields.shape[-3:-1])}")
+        with span("model"):
+            return self._forward(fields, grid, proc)
+
+    def _forward(self, fields, grid, proc):
+        H, W = self.mesh_size
         fields = fields.to(self.dtype)
-        hidden = self.input_proj(fields)
-        hidden_static = self._static_encoder(fields[..., -self.n_static :])
+        with span("input_proj"):
+            hidden = self.input_proj(fields)
+        with span("static_encoder"):
+            hidden_static = self._static_encoder(fields[..., -self.n_static :])
         skip = hidden
-        hidden = self.downsample(hidden)
-        hidden_static = self.downsample(hidden_static)
+        with span("downsample"):
+            hidden = self.downsample(hidden)
+            hidden_static = self.downsample(hidden_static)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         if remat:
             context_fn = remat_context_fn(self.resolve_remat_policy())
@@ -381,4 +395,5 @@ class Paradis(nn.Module):
                 with spatial_rules(proc):
                     hidden = layer(hidden, hidden_static, self.lat_grid, self.lon_grid)
         hidden = periodic_upsample(hidden, H, W, proc) + skip
-        return self.output_proj(hidden)
+        with span("output_proj"):
+            return self.output_proj(hidden)

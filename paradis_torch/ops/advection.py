@@ -24,6 +24,7 @@ from paradis_torch.ops.interp_dense import interp_dense
 from paradis_torch.sphere.geometry import rotated_to_latlon
 from paradis_torch.sphere.padding import geocyclic_pad, geocyclic_pad_whole
 from paradis_torch.sphere.partition import spatial_grid
+from paradis_torch.utils.tracing import span
 
 INTERP_IMPLS = ("auto", "plain", "xla", "gather")
 # the JAX package's names of its kernel path: Paradis.set_interp_impl makes them auto
@@ -242,15 +243,19 @@ class NeuralSemiLagrangian(nn.Module):
         the departure points span the whole extent, and the gather, the pole
         rows and the pad run over the other axis alone."""
         pad = 2 if self.interpolation == "bicubic" else 1
-        proj = enforce_pole_continuity(self.down_projection(hidden))
-        pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,
-                                              fast_trig=self.fast_trig)
+        with span("advection_proj"):
+            proj = enforce_pole_continuity(self.down_projection(hidden))
+        with span("departure"):
+            pix_y, pix_x = departure_pixel_coords(u, v, dt, lat_grid, lon_grid,
+                                                  fast_trig=self.fast_trig)
         grid = spatial_grid()
         if grid is None:
             field, row_pad = geocyclic_pad(proj, pad), None
         else:
             field = geocyclic_pad_whole(grid.gather(proj), pad)
             row_pad = pad + grid.rows(lat_grid.shape[0]).start
-        out = interpolate(field, pix_y, pix_x, self.interpolation, self.impl,
-                          max_dy_pix=self.band_max_dy_pix, shift=pad, row_pad=row_pad)
-        return self.up_projection(enforce_pole_continuity(out))
+        with span("interpolation"):
+            out = interpolate(field, pix_y, pix_x, self.interpolation, self.impl,
+                              max_dy_pix=self.band_max_dy_pix, shift=pad, row_pad=row_pad)
+        with span("advection_proj"):
+            return self.up_projection(enforce_pole_continuity(out))

@@ -44,6 +44,7 @@ from paradis_torch import _build
 from paradis_torch.ops.interp import check_mode, interp_bwd_plain, interp_plain
 from paradis_torch.ops.interp_band import interp_band_bwd_plain, interp_band_plain
 from paradis_torch.ops.interp_chunk import check_rw, interp_chunk_bwd_plain, interp_chunk_plain
+from paradis_torch.utils.tracing import span
 
 launches = 0
 bwd_launches = 0
@@ -405,7 +406,8 @@ def _interp_setup(ctx, inputs, output):
 
 
 def _interp_backward(ctx, g):
-    d_field, d_py, d_px = interp_bwd_op(*ctx.saved_tensors, g, *ctx.args)
+    with span("interpolation_bwd"):
+        d_field, d_py, d_px = interp_bwd_op(*ctx.saved_tensors, g, *ctx.args)
     return d_field, d_py, d_px, None, None, None, None, None
 
 

@@ -18,20 +18,21 @@ under ``torch.profiler``, and the device time a step is bucketed:
   this is the cheap mode ``chip_smoke.py`` runs);
 - ``--bucket source`` (``source_profile``, the default, as there): each
   kernel by the part of the step that launched it.  For the traced steps
-  only, the tool names ranges (``torch.profiler.record_function``) around
-  the model's modules (input projection, static encoder, downsample; in each
-  physics layer the velocity net, the advection's projections, the
-  departure points, the interpolation, diffusion and reaction, and the
-  layer's own ops: the gated blend and the residual adds), the loss and the
-  optimizer, and traces the host's operators too.  A kernel goes to the
-  innermost range of the operator that launched it.  A kernel launched in
-  autograd's backward goes to ``backward: <range>``, the range of the
+  the program records its spans (``paradis_torch.utils.tracing``, each a
+  ``torch.profiler.record_function`` of its name: input projection, static
+  encoder, downsample; in each physics layer the velocity net, the
+  advection's projections, the departure points, the interpolation,
+  diffusion and reaction, and the layer's own ops: the gated blend and the
+  residual adds; the loss and the optimizer), and the profiler traces the
+  host's operators too.  A kernel goes to the bucket of the innermost span
+  of the operator that launched it (``BUCKETS``).  A kernel launched in
+  autograd's backward goes to ``backward: <bucket>``, the bucket of the
   forward operator whose autograd node it runs (the node's sequence number
-  is the forward operator's); gradient checkpointing's replayed forward in
-  the backward goes to ``replay: <range>``.  What no range holds is
-  ``other`` (``backward: other`` in the backward: the step's own
-  operators, the gradient accumulation).  Nothing of this is installed
-  while the tool is not tracing.
+  is the forward operator's; the interpolation's backward has its own
+  span); gradient checkpointing's replayed forward in the backward goes to
+  ``replay: <bucket>``.  What no bucket holds is ``other`` (``backward:
+  other`` in the backward: the step's own operators, the gradient
+  accumulation).  The tool installs nothing in the program.
 
 On the CPU (``--device cpu``, for the tests) the buckets hold the operators'
 own host time.  ``--keep DIR`` exports the chrome trace there.  Prints the
@@ -43,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import json
 import time
 from pathlib import Path
@@ -52,7 +52,12 @@ import torch
 
 from paradis_torch.tools.flagship import (GRID, TINY, TINY_GRID, device_of, device_record, sync)
 
-RANGE = "source/"           # prefix of the tool's ranges
+# the source bucket of each of the program's spans (``utils/tracing.py``)
+# that is not a bucket of its own: a physics layer's own operators are its
+# gated blend and residual adds, the advection's its pads and pole rows
+BUCKETS = {"layer": "blend", "advection": "advection_proj", "grad_norm": "optimizer",
+           "clip": "optimizer", "adamw": "optimizer", "normuon": "optimizer",
+           "train_step": "other", "forward": "other", "zero_grad": "other", "backward": "other"}
 BACKWARD = "autograd::engine::evaluate_function: "
 
 
@@ -90,78 +95,15 @@ def device_profile(run, n_steps: int, wall_per_step_s: float, top: int = 6) -> d
     }
 
 
-def _module_labels(model) -> list:
-    """``(module, label)`` of the model's parts the source buckets name."""
-    out = [(model, "model"), (model.input_proj, "input_proj"),
-           (model.output_proj, "output_proj"), (model.downsample, "downsample")]
-    out += [(m, "static_encoder") for n, m in model.named_children() if n.startswith("static_")]
-    for layer in model.layers:
-        adv = layer.advection
-        out += [(layer, "blend"), (layer.velocity_net, "velocity_net"),
-                (adv, "advection_proj"), (adv.down_projection, "advection_proj"),
-                (adv.up_projection, "advection_proj"), (layer.diffusion, "diffusion"),
-                (layer.reaction, "reaction")]
-    return out
-
-
-@contextlib.contextmanager
-def attribution(model, optimizer, loss_cls):
-    """The source buckets' ranges, installed for the block only: forward
-    pre- and post-hooks on the model's parts, the departure points and the
-    interpolation of ``ops/advection.py``, ``loss_cls.__call__`` and the
-    optimizer's ``step`` and ``grad_norm``."""
-    from torch.autograd.profiler import record_function
-
-    from paradis_torch.ops import advection
-
-    handles, open_ranges = [], {}
-
-    def pre(label):
-        def hook(module, args):
-            rf = record_function(RANGE + label)
-            rf.__enter__()
-            open_ranges.setdefault(id(module), []).append(rf)
-        return hook
-
-    def post(module, args, output):
-        open_ranges[id(module)].pop().__exit__(None, None, None)
-
-    for module, label in _module_labels(model):
-        handles.append(module.register_forward_pre_hook(pre(label)))
-        handles.append(module.register_forward_hook(post, always_call=True))
-
-    def ranged(fn, label):
-        def wrapped(*args, **kwargs):
-            with record_function(RANGE + label):
-                return fn(*args, **kwargs)
-        return wrapped
-
-    saved = {"departure_pixel_coords": advection.departure_pixel_coords,
-             "interpolate": advection.interpolate}
-    advection.departure_pixel_coords = ranged(saved["departure_pixel_coords"], "departure")
-    advection.interpolate = ranged(saved["interpolate"], "interpolation")
-    loss_call = loss_cls.__call__
-    loss_cls.__call__ = ranged(loss_call, "loss")
-    optimizer.step = ranged(type(optimizer).step.__get__(optimizer), "optimizer")
-    optimizer.grad_norm = ranged(type(optimizer).grad_norm.__get__(optimizer), "optimizer")
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
-        for name, fn in saved.items():
-            setattr(advection, name, fn)
-        loss_cls.__call__ = loss_call
-        del optimizer.step, optimizer.grad_norm
-
-
-def _bucket(event, seq_labels: dict) -> str:
-    """The source bucket of a host operator: its innermost range, or in the
-    backward its autograd node's forward range."""
+def _bucket(event, seq_labels: dict, spans: set) -> str:
+    """The source bucket of a host operator: its innermost span, or in the
+    backward its autograd node's forward bucket."""
     e = event
     while e is not None:
-        if e.name.startswith(RANGE):
-            label = e.name[len(RANGE):]
+        if e.name in spans:
+            if e.name == "interpolation_bwd":
+                return "backward: interpolation"
+            label = BUCKETS.get(e.name, e.name)
             return label if not _in_backward(e) else f"replay: {label}"
         if e.name.startswith(BACKWARD):
             if "AccumulateGrad" in e.name:
@@ -180,19 +122,21 @@ def _in_backward(event) -> bool:
     return False
 
 
-def source_profile(run, n_steps: int, model, optimizer, loss_cls, device,
-                   keep: str | None = None) -> dict:
+def source_profile(run, n_steps: int, device, keep: str | None = None) -> dict:
     """Device time per step of ``run()`` (``n_steps`` steps) by source
     bucket, by kernel and by both (``pairs``) from one trace of the host's
     operators and the device (on the CPU: the operators' own host time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paradis_torch.utils.tracing import recording
+
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with attribution(model, optimizer, loss_cls), profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, recording(annotate=True) as recorded:
         run()
         sync(device)
+    spans = {s.name for s in recorded}
     if keep:
         Path(keep).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(keep) / "trace.json"))
@@ -201,13 +145,13 @@ def source_profile(run, n_steps: int, model, optimizer, loss_cls, device,
     seq_labels = {}
     for e in cpu:
         if e.sequence_nr >= 0 and not e.name.startswith(BACKWARD) and not _in_backward(e):
-            label = _bucket(e, {})
+            label = _bucket(e, {}, spans)
             if label != "other":
                 seq_labels.setdefault(e.sequence_nr, label)
     def timed():  # (operator, kernel or operator name, microseconds)
         for e in cpu:
             if cuda:  # the profiler hangs each kernel on the operator that launched it
-                # (a range's own span on the device has the range's name)
+                # (a span's annotation on the device has the span's name)
                 yield from ((e, k.name, k.duration) for k in e.kernels if k.name != e.name)
             elif (not e.is_user_annotation and not e.name.startswith(BACKWARD)
                   and e.name.startswith(("aten::", "paradis::"))):
@@ -217,7 +161,7 @@ def source_profile(run, n_steps: int, model, optimizer, loss_cls, device,
     by_op: dict = collections.defaultdict(float)
     pairs: dict = collections.defaultdict(float)
     for e, name, us in timed():
-        ms, source = us / 1e3 / n_steps, _bucket(e, seq_labels)
+        ms, source = us / 1e3 / n_steps, _bucket(e, seq_labels, spans)
         by_source[source] += ms
         by_op[name] += ms
         pairs[source, name] += ms
@@ -272,14 +216,11 @@ def main(argv=None) -> dict:
         for _ in range(args.steps):
             step()
 
-    from paradis_torch.train import WeightedLoss
-
     if args.bucket == "op" and device.type == "cuda":
         prof = device_profile(traced, args.steps, wall_s, top=args.top)
         total, rows = prof["device_ms_per_step"], prof["top_kernels_ms_per_step"]
     else:  # on the CPU the op table comes from the operators' host time
-        prof = source_profile(traced, args.steps, run["model"], run["optimizer"],
-                              WeightedLoss, device, args.keep)
+        prof = source_profile(traced, args.steps, device, args.keep)
         total, rows = prof["ms_per_step"], prof["by_" + args.bucket]
     print(f"{'device' if device.type == 'cuda' else 'host'} time: {total:.2f} ms/step "
           f"(batch {args.batch}, {grid[0]}x{grid[1]}); trace: {args.keep}")

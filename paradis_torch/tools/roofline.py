@@ -295,7 +295,6 @@ def measure(grid, device, steps: int, overrides=()) -> dict:
     from paradis_torch.tools.bench_highres import train_setup
     from paradis_torch.tools.flagship import sync
     from paradis_torch.tools.profile_step import source_profile
-    from paradis_torch.train import WeightedLoss
 
     run = train_setup(_config(grid, overrides), grid, device)
     for _ in range(4):
@@ -306,7 +305,7 @@ def measure(grid, device, steps: int, overrides=()) -> dict:
         for _ in range(steps):
             run["step"]()
 
-    prof = source_profile(traced, steps, run["model"], run["optimizer"], WeightedLoss, device)
+    prof = source_profile(traced, steps, device)
     src = prof["by_source"]
 
     def get(*keys):

@@ -53,6 +53,7 @@ from paradis_torch.train.loss import WeightedLoss
 from paradis_torch.train.optim import build_optimizer, build_schedule, set_learning_rate
 from paradis_torch.train.step import create_train_state, make_eval_step, make_train_step
 from paradis_torch.utils.logging import MetricsLogger, grad_statistics, save_run_snapshot
+from paradis_torch.utils.tracing import recording, span
 
 log = logging.getLogger("paradis_torch")
 
@@ -71,6 +72,17 @@ def _host_rss_mb() -> float:
         return pages * (_PAGE_BYTES / 1e6)
     except (OSError, ValueError, IndexError):
         return 0.0
+
+
+def _waited(loader):
+    """The loader's batches, the wait for each inside a ``data_wait`` span."""
+    batches = iter(loader)
+    while True:
+        with span("data_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 class _NullMetrics:
@@ -231,10 +243,17 @@ class Trainer:
         self._es_bad = 0
         self._checkpointing = bool(cfg.training.checkpointing.enabled)
         self._profiler = None
+        self._window = None
 
     # -- loops -----------------------------------------------------------------
 
     def fit(self) -> dict:
+        try:
+            return self._fit()
+        finally:
+            self._stop_profiler()
+
+    def _fit(self) -> dict:
         cfg = self.cfg
         num_common = self.train_ds.num_common_features
         log_every = int(cfg.training.log_every_n_steps)
@@ -266,7 +285,7 @@ class Trainer:
             step0 = int(self.state.step)
             window_t0 = time.perf_counter()
             window_steps = 0
-            for batch in self.train_loader:
+            for batch in _waited(self.train_loader):
                 opt_step = step0 + (micro_host // grad_accum)  # completed steps
                 lr = self.schedule(opt_step)
                 set_learning_rate(self.optimizer, lr)
@@ -286,7 +305,8 @@ class Trainer:
                 if not need_sync:
                     continue
 
-                loss = float(m["loss"])  # waits for the device
+                with span("sync"):
+                    loss = float(m["loss"])  # waits for the device
                 dt = (time.perf_counter() - window_t0) / max(1, window_steps)
                 window_t0 = time.perf_counter()
                 window_steps = 0
@@ -318,7 +338,8 @@ class Trainer:
                     if "grads" in m:
                         self._log_deep_stats(step, m)
                 if self._checkpointing:
-                    self.ckpt.maybe_save_step(step, self.state)
+                    with span("checkpoint"):
+                        self.ckpt.maybe_save_step(step, self.state)
                 if val_every and step and step % int(val_every) == 0:
                     last_val = self._validate(step)
                     stop = stop or self._early_stop_check(last_val)
@@ -334,8 +355,9 @@ class Trainer:
             if self.plateau is not None:
                 self.plateau.update(last_val)
             if self._checkpointing:
-                self.ckpt.save_epoch(epoch, self.state)
-                self.ckpt.maybe_save_best(last_val, self.state)
+                with span("checkpoint"):
+                    self.ckpt.save_epoch(epoch, self.state)
+                    self.ckpt.maybe_save_best(last_val, self.state)
             max_epochs = int(self.cfg.training.max_epochs)
             if max_epochs > 0 and epoch >= max_epochs:
                 stop = True
@@ -350,7 +372,6 @@ class Trainer:
 
         if pbar is not None:
             pbar.close()
-        self._stop_profiler()
         return {"steps": int(self.state.step), "epochs": epoch, "val_loss": last_val}
 
     def _validate(self, step: int) -> float:
@@ -358,7 +379,7 @@ class Trainer:
         num_common = self.val_ds.num_common_features
         losses, reports = [], []
         gathered = self.parallel.gathered() if self.parallel is not None else contextlib.nullcontext()
-        with gathered:
+        with span("validate"), gathered:
             for i, batch in enumerate(self.val_loader):
                 if limit is not None and i >= int(limit):
                     break
@@ -379,7 +400,9 @@ class Trainer:
 
     def _profiler_tick(self, step: int) -> None:
         """``torch.profiler`` trace window around the configured steps,
-        written to ``<log_dir>/profile/trace.json``."""
+        written to ``<log_dir>/profile/trace.json``, with the program's spans
+        recorded over it (``utils/tracing.py``), so that the trace names
+        them."""
         pcfg = self.cfg.training.get("profiler", None)
         if not pcfg or not pcfg.get("enabled") or not self.is_main:
             return
@@ -391,19 +414,20 @@ class Trainer:
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            self._profiler = profile(activities=activities)
-            self._profiler.start()
+            self._window = contextlib.ExitStack()
+            self._profiler = self._window.enter_context(profile(activities=activities))
+            self._window.enter_context(recording(annotate=True))
         elif self._profiler is not None and step >= start + num:
             self._stop_profiler()
 
     def _stop_profiler(self) -> None:
         if self._profiler is None:
             return
-        self._profiler.stop()
+        self._window.close()  # the spans' recording, then the profiler
         out = self.log_dir / "profile"
         out.mkdir(parents=True, exist_ok=True)
         self._profiler.export_chrome_trace(str(out / "trace.json"))
-        self._profiler = None
+        self._profiler = self._window = None
         log.info("profiler trace written to %s", out)
 
     def _log_deep_stats(self, step: int, m: dict) -> None:

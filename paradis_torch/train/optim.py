@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from paradis_torch.model.weights import flax_leaf
+from paradis_torch.utils.tracing import span
 
 log = logging.getLogger("paradis_torch")
 
@@ -226,7 +227,8 @@ class ParadisOptimizer:
 
     def grad_norm(self) -> torch.Tensor:
         """The global norm of the gradients of every rank's parameters."""
-        return grad_norm(self.params, self.sum_across)
+        with span("grad_norm"):
+            return grad_norm(self.params, self.sum_across)
 
     def param_states(self) -> dict:
         """The optimizer's state by parameter name, whatever the grouping:
@@ -287,17 +289,21 @@ class ParadisOptimizer:
     @torch.no_grad()
     def step(self) -> None:
         if self.clip is not None:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            norm = self.grad_norm()
-            # optax.clip_by_global_norm: g / ‖g‖ · clip where ‖g‖ ≥ clip
-            scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
-            torch._foreach_mul_(grads, scale)
+            with span("clip"):
+                grads = [p.grad for p in self.params if p.grad is not None]
+                norm = self.grad_norm()
+                # optax.clip_by_global_norm: g / ‖g‖ · clip where ‖g‖ ≥ clip
+                scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
+                torch._foreach_mul_(grads, scale)
         if self.adamw is not None:
-            for group in self.adamw.param_groups:
-                group["lr"] = self.lr
-            self.adamw.step()
-        for group in self.muon_groups:
-            self._muon_step(group)
+            with span("adamw"):
+                for group in self.adamw.param_groups:
+                    group["lr"] = self.lr
+                self.adamw.step()
+        if self.muon_groups:
+            with span("normuon"):
+                for group in self.muon_groups:
+                    self._muon_step(group)
 
     def _muon_step(self, group: _MuonGroup) -> None:
         b1, b2 = self.betas

@@ -34,6 +34,7 @@ from paradis_torch.forecast.rollout import autoregress_next_input
 from paradis_torch.sphere.partition import spatial_mean, spatial_rules
 from paradis_torch.train.optim import ParadisOptimizer
 from paradis_torch.utils.normalization import denormalize_humidity, denormalize_precipitation
+from paradis_torch.utils.tracing import span
 
 
 @dataclass
@@ -91,7 +92,7 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
     def train_step(state: TrainState, batch: dict, num_common_features: int) -> dict:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the train state holds another model or optimizer than this step")
-        with spatial_rules(grid):
+        with span("train_step"), spatial_rules(grid):
             return _train_step(state, batch, num_common_features)
 
     def _train_step(state: TrainState, batch: dict, num_common_features: int) -> dict:
@@ -101,7 +102,8 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
         scale = 1.0 / (S * grad_accum)
 
         if state.micro_step % grad_accum == 0:
-            model.zero_grad()  # every parameter's, the rank's own or not
+            with span("zero_grad"):
+                model.zero_grad()  # every parameter's, the rank's own or not
         if parallel is not None:
             parallel.gather()
         before = ({n: p.grad.clone() for n, p in named if p.grad is not None}
@@ -111,8 +113,10 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
         for lo in range(0, S, seg):
             total = 0.0
             for t in range(lo, min(lo + seg, S)):
-                out = model(_model_input(dyn, forcings[:, t], constants))
-                loss_t = loss_fn(out, targets[:, t])
+                with span("forward"):
+                    out = model(_model_input(dyn, forcings[:, t], constants))
+                with span("loss"):
+                    loss_t = loss_fn(out, targets[:, t])
                 if deep_stats and t == 0:
                     with torch.no_grad():
                         diag0 = (loss_fn.per_channel(out, targets[:, 0], weighted=True),
@@ -120,7 +124,8 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
                 losses.append(loss_t.detach())
                 total = total + loss_t
                 dyn = autoregress_next_input(dyn, out, num_common_features, n_time)
-            (total * scale).backward()
+            with span("backward"):
+                (total * scale).backward()
             dyn = dyn.detach()
 
         losses_all = torch.stack(losses)
@@ -141,8 +146,9 @@ def make_train_step(model: nn.Module, loss_fn, cfg, optimizer: ParadisOptimizer,
         if applied:
             if parallel is not None:
                 parallel.average_gradients()
-            gnorm = optimizer.grad_norm()
-            optimizer.step()
+            with span("optimizer"):
+                gnorm = optimizer.grad_norm()
+                optimizer.step()
             state.step += 1
             if parallel is not None:
                 parallel.release()

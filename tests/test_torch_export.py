@@ -32,6 +32,7 @@ from paradis_torch.forecast.export import (  # noqa: E402
     _check_device,
     _flatten_params,
     _unflatten_params,
+    export_forward,
     load_artifact,
     save_artifact,
 )
@@ -208,6 +209,23 @@ def test_programs_take_the_parameters_and_own_no_copy(pair, exported):
         user = [s for s in ep.graph_signature.input_specs
                 if s.kind == torch.export.graph_signature.InputKind.USER_INPUT]
         assert len(user) == (1 if name == "forward.pt2" else 3) + n_params, name
+
+
+def test_recording_the_programs_spans_leaves_the_exported_graph_as_it_is(pair):
+    """The spans (``paradis_torch.utils.tracing``) are off while the export
+    traces: a forward exported with recording on, annotations and all, is
+    the graph exported with it off."""
+    from paradis_torch.utils.tracing import recording
+
+    def graph():
+        ep = export_forward(pair.model, batch_size=1, nlat=NLAT, nlon=NLON,
+                            input_dim=pair.input_dim)
+        return str(ep.graph)
+
+    off = graph()
+    with recording(annotate=True) as spans:
+        on = graph()
+    assert on == off and not spans and "profiler" not in on
 
 
 def test_export_takes_cuda_without_an_index_as_the_models_card(monkeypatch):

@@ -48,10 +48,11 @@ np.save({out!r}, out.numpy())
 np.save({roll!r}, roll.numpy())
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "paradis_tpu"))
 assert not bad, bad
-# the op registrations and what they import, nothing of the model, the data
-# pipeline, the rollout or the writer
+# the op registrations and what they import (the spans of utils/tracing.py),
+# nothing of the model, the data pipeline, the rollout or the writer
 serving_modules = {{"paradis_torch", "paradis_torch._build", "paradis_torch.forecast",
-                   "paradis_torch.forecast.export"}}
+                   "paradis_torch.forecast.export", "paradis_torch.utils",
+                   "paradis_torch.utils.tracing"}}
 extra = sorted(k for k in sys.modules if k.startswith("paradis_torch")
                and k not in serving_modules
                and not k.startswith(("paradis_torch.ops", "paradis_torch.sphere")))

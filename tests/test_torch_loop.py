@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import csv  # noqa: E402
+import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -248,11 +249,17 @@ def test_setup_system_checks(store, tmp_path):
 
 
 def test_profiler_window_writes_a_trace(store, tmp_path):
+    from paradis_torch.utils import tracing
+
     t = _trainer(store, tmp_path, **{"training.max_steps": 3, "training.profiler.enabled": True,
                                      "training.profiler.start_step": 1,
                                      "training.profiler.num_steps": 1})
     t.fit()
-    assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
+    trace = tmp_path / "profile" / "trace.json"
+    assert trace.stat().st_size > 0
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"train_step", "optimizer", "data_wait", "sync"} <= names  # the program's spans
+    assert not tracing.is_recording()
 
 
 def _cli_overrides(store, log_dir):

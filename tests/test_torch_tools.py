@@ -112,15 +112,16 @@ def test_profile_step_buckets_the_step(bucket, capsys):
 def test_profile_step_leaves_nothing_installed():
     from paradis_torch.ops import advection
     from paradis_torch.train import WeightedLoss
+    from paradis_torch.utils import tracing
 
     run = profile_step.build_step(1, (8, 16), "cpu", tiny=True)
     before = (advection.interpolate, advection.departure_pixel_coords, WeightedLoss.__call__)
-    profile_step.source_profile(run["step"], 1, run["model"], run["optimizer"], WeightedLoss,
-                                "cpu")
+    profile_step.source_profile(run["step"], 1, "cpu")
     assert (advection.interpolate, advection.departure_pixel_coords,
             WeightedLoss.__call__) == before
     assert "step" not in vars(run["optimizer"]) and "grad_norm" not in vars(run["optimizer"])
     assert not any(m._forward_hooks or m._forward_pre_hooks for m in run["model"].modules())
+    assert not tracing.is_recording()
 
 
 def test_roofline_bounds_are_perf_mds_bound_column():

@@ -286,7 +286,7 @@ from paradis_torch.tools import (bench_forecast, bench_highres, bench_pipeline, 
 assert bench_forecast.CHAIN_SHORT == 2 and bench_highres.CHAIN_LONG == 8
 assert roofline.bound(torch.empty(1, 12, 20, 4), torch.empty(1, 8, 16, 4), "bicubic")[0] > 0
 assert flagship.HR_GRID == (128, 256) and soak.POLL_S > 0 and rehearsal.LEVELS_13[0] == 50
-assert profile_step.RANGE and profile_live.main and bench_pipeline.build_store
+assert profile_step.BUCKETS and profile_live.main and bench_pipeline.build_store
 assert ns_convergence.TOY_LEVELS == (500, 850, 1000) and lq_convergence.toy_train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "paradis_tpu"))
